@@ -1,0 +1,42 @@
+"""Device helpers and the port's numerics policy.
+
+Every device decision of the port is explicit: functions take a
+``torch.device`` (or tensors that lie on one) and never guess.  The
+numerics policy lives here and only here: all arithmetic is float32, and
+no matrix product or convolution may silently drop to TF32 — a
+reduced-precision dot is exactly the fault that once darkened the JAX
+package's images by ~28% (DEVIATIONS.md section 6).
+"""
+
+from __future__ import annotations
+
+import subprocess
+
+import torch
+
+
+def configure_numerics() -> None:
+    """Full-precision float32 everywhere: TF32 off for matmuls and cuDNN."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+def require_cuda() -> torch.device:
+    """The first CUDA device; raises when the process sees no card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device visible: torch.cuda.is_available() is False")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def card_line() -> str:
+    """The first card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them: a
+    card set below its maximum power runs slower under load, so every
+    timing is reported beside this line."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return res.stdout.strip().splitlines()[0]

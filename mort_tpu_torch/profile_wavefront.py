@@ -1,0 +1,82 @@
+"""Where the wavefront's time goes on the card: one torch.profiler window.
+
+    python -m mort_tpu_torch.profile_wavefront [--tasks N]
+
+Renders scene 1 at its bench config (1200x675, 100 spp, depth 20) over the
+first ``--tasks`` chunk-tasks, after a warm-up span: once plainly for the
+wall time, then once under ``torch.profiler`` (CPU + CUDA).  Prints the
+device time by kernel, the closest-hit kernel's share of it, the device's
+busy and idle shares of the unprofiled wall time, and device kernels per
+bounce step, beside the card's name and power limit.  Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from . import require_cuda
+from .device import card_line
+from .render import closest_hit as ch
+from .render.wavefront import render_wavefront
+from .scene import scenes as sc
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tasks", type=int, default=1 << 20,
+                    help="chunk-tasks to render (8 paths each)")
+    args = ap.parse_args(argv)
+
+    dev = require_cuda()
+    card = card_line()
+    world, cam = sc.random_spheres()
+    data, meta = world.compile()
+    kw = dict(seed=69420, task_range=(0, args.tasks), return_stats=True)
+    render_wavefront(data, meta, cam, dev, seed=1, task_range=(0, 4096))
+
+    torch.cuda.synchronize()
+    ch.launch_count = 0
+    t0 = time.perf_counter()
+    _, stats = render_wavefront(data, meta, cam, dev, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = ch.launch_count
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        render_wavefront(data, meta, cam, dev, **kw)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    busy_us = sum(_device_us(e) for e in kernels)
+    n_launch = sum(e.count for e in kernels)
+    ch_us = sum(_device_us(e) for e in kernels if "closest_hit" in e.key)
+
+    print(f"scene1 bench config, tasks [0, {args.tasks}): wall {wall:.4f} s "
+          f"unprofiled, {stats['iterations']} rounds, {steps} bounce steps, "
+          f"occupancy {stats['useful_segments'] / stats['slots_executed']:.4f}"
+          f" | {card}")
+    print(f"device busy {busy_us / 1e6:.4f} s = "
+          f"{busy_us / 1e6 / wall:.4f} of the unprofiled wall "
+          f"(idle share {1 - busy_us / 1e6 / wall:.4f}); "
+          f"{n_launch} kernel launches = {n_launch / max(steps, 1):.1f} per "
+          f"bounce step; closest_hit {ch_us / 1e6:.4f} s = "
+          f"{ch_us / max(busy_us, 1):.4f} of device time")
+    print("top kernels by device time (s, launches, name):")
+    for e in sorted(kernels, key=_device_us, reverse=True)[:20]:
+        print(f"  {_device_us(e) / 1e6:9.4f} {e.count:8d}  {e.key[:100]}")
+
+
+if __name__ == "__main__":
+    main()

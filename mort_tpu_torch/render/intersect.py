@@ -1,0 +1,189 @@
+"""Batched ray-scene intersection: the port's reference intersector.
+
+The port of ``mort_tpu.render.intersect`` (``quad_frames``, ``sphere_pass``,
+``quad_pass``, ``intersect_best``).  The reference's sequential closest-hit
+loop over tagged registries (world.cuh:105-171) becomes a chunked
+min-reduction over [R, C] tensors.  The ray-primitive inner products are
+written as elementwise products, never ``torch.matmul``, so no TF32 question
+can arise.
+
+Closest-hit ties resolve to the earlier registry (sphere < quad), matching
+the reference's strict ``t < closest_so_far`` update rule.  Constant media
+(``media_pass``) are not ported yet: ``intersect_best`` raises
+``NotImplementedError`` for a scene that has them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..scene.build import SceneData, SceneMeta
+from .vec import safe_sqrt
+
+INF = float("inf")
+T_MIN = 1e-3          # world-level epsilon (camera.cuh:97)
+
+# best-hit kind codes
+K_NONE = 0
+K_SPHERE = 1
+K_QUAD = 2
+K_MEDIUM0 = 3
+
+
+@dataclass(frozen=True)
+class QuadFrames:
+    """Per-quad derived quantities (objects.cuh:170-185)."""
+    normal: torch.Tensor   # [Nq,3] unit
+    D: torch.Tensor        # [Nq]
+    vxw: torch.Tensor      # [Nq,3] cross(v, w)
+    wxu: torch.Tensor      # [Nq,3] cross(w, u)
+    qa: torch.Tensor       # [Nq] Q . vxw
+    qb: torch.Tensor       # [Nq] Q . wxu
+    area: torch.Tensor     # [Nq] |cross(u,v)|
+
+
+def _dot3(a, b):
+    return torch.sum(a * b, dim=-1)
+
+
+def quad_frames(data: SceneData) -> QuadFrames:
+    n = torch.linalg.cross(data.quad_u, data.quad_v)
+    nn = _dot3(n, n)[..., None]
+    normal = n / torch.sqrt(nn)
+    w = n / nn
+    vxw = torch.linalg.cross(data.quad_v, w)
+    wxu = torch.linalg.cross(w, data.quad_u)
+    return QuadFrames(
+        normal=normal,
+        D=_dot3(normal, data.quad_Q),
+        vxw=vxw,
+        wxu=wxu,
+        qa=_dot3(data.quad_Q, vxw),
+        qb=_dot3(data.quad_Q, wxu),
+        area=torch.sqrt(_dot3(n, n)),
+    )
+
+
+def _chunk_bounds(n_rows, n_valid, chunk):
+    """Chunking plan: (start, size) pairs covering n_rows, all-padding
+    chunks skipped."""
+    return [(s, min(chunk, n_rows - s)) for s in range(0, n_rows, chunk)
+            if s < n_valid]
+
+
+def _rc(a, b):
+    """[R,3] x [C,3] -> [R,C] inner products, elementwise."""
+    return (a[:, 0:1] * b[:, 0] + a[:, 1:2] * b[:, 1]) + a[:, 2:3] * b[:, 2]
+
+
+def first_min(cand):
+    """(min, index of the FIRST minimum) over dim 1 of [R, C]."""
+    ct = cand.amin(dim=1)
+    cols = torch.arange(cand.shape[1], device=cand.device)
+    ci = torch.where(cand == ct[:, None], cols, cand.shape[1]).amin(dim=1)
+    return ct, ci
+
+
+def _merge(best_t, best_idx, ct, ci):
+    better = ct < best_t
+    return torch.where(better, ct, best_t), torch.where(better, ci, best_idx)
+
+
+def sphere_pass(data: SceneData, meta: SceneMeta, ro, rd, time, t_min,
+                best_t, best_idx, chunk=512):
+    """Closest sphere hit (objects.cuh:61-88 batched). Returns (t, idx)."""
+    n_rows = data.sph_center.shape[0]
+    if meta.n_spheres == 0:
+        return best_t, best_idx
+
+    a = _dot3(rd, rd)                          # [R]
+    ro_rd = _dot3(ro, rd)
+    ro_sq = _dot3(ro, ro)
+
+    for start, size in _chunk_bounds(n_rows, meta.n_spheres, chunk):
+        c = data.sph_center[start:start + size]
+        surf = data.sph_surface[start:start + size]
+        r = data.sph_radius[start:start + size]
+        rdc = _rc(rd, c)                       # [R,C]
+        roc = _rc(ro, c)
+        ctc = _dot3(c, c)                      # [C]
+        if meta.any_moving:
+            cv = data.sph_cvec[start:start + size]
+            rdv = _rc(rd, cv)
+            rov = _rc(ro, cv)
+            ccv = _dot3(c, cv)
+            vv = _dot3(cv, cv)
+            tcol = time[:, None]
+            half_b = ro_rd[:, None] - rdc - tcol * rdv
+            c_term = (ro_sq[:, None] - 2.0 * roc - 2.0 * tcol * rov
+                      + ctc[None, :] + 2.0 * tcol * ccv[None, :]
+                      + tcol * tcol * vv[None, :] - (r * r)[None, :])
+        else:
+            half_b = ro_rd[:, None] - rdc
+            c_term = ro_sq[:, None] - 2.0 * roc + (ctc - r * r)[None, :]
+
+        disc = half_b * half_b - a[:, None] * c_term
+        sq = safe_sqrt(disc)
+        inv_a = 1.0 / a[:, None]
+        root1 = (-half_b - sq) * inv_a
+        root2 = (-half_b + sq) * inv_a
+        # nearest root in range (objects.cuh:72-77) with t_max = +inf
+        root = torch.where(root1 > t_min, root1, root2)
+        valid = (disc >= 0.0) & (root > t_min) & surf[None, :]
+        ct, ci = first_min(torch.where(valid, root, INF))
+        best_t, best_idx = _merge(best_t, best_idx, ct, ci + start)
+    return best_t, best_idx
+
+
+def quad_pass(data: SceneData, meta: SceneMeta, qf: QuadFrames, ro, rd, t_min,
+              best_t, best_idx, chunk=512):
+    """Closest quad hit (objects.cuh:190-215 batched). Returns (t, idx)."""
+    n_rows = data.quad_Q.shape[0]
+    if meta.n_quads == 0:
+        return best_t, best_idx
+
+    for start, size in _chunk_bounds(n_rows, meta.n_quads, chunk):
+        sl = slice(start, start + size)
+        nrm = qf.normal[sl]
+        surf = data.quad_surface[sl]
+        denom = _rc(rd, nrm)                                 # [R,C]
+        ok_denom = torch.abs(denom) >= 1e-8
+        denom_safe = torch.where(ok_denom, denom, 1.0)
+        t = torch.where(ok_denom,
+                        (qf.D[None, sl] - _rc(ro, nrm)) / denom_safe, -1.0)
+        alpha = _rc(ro, qf.vxw[sl]) + t * _rc(rd, qf.vxw[sl]) - qf.qa[None, sl]
+        beta = _rc(ro, qf.wxu[sl]) + t * _rc(rd, qf.wxu[sl]) - qf.qb[None, sl]
+        valid = (ok_denom & (t > t_min)
+                 & (alpha >= 0.0) & (alpha <= 1.0)
+                 & (beta >= 0.0) & (beta <= 1.0)
+                 & surf[None, :])
+        ct, ci = first_min(torch.where(valid, t, INF))
+        best_t, best_idx = _merge(best_t, best_idx, ct, ci + start)
+    return best_t, best_idx
+
+
+def intersect_best(data: SceneData, meta: SceneMeta, qf: QuadFrames,
+                   ro, rd, time, chunk=512):
+    """world::hit closest-hit search over [R,3] rays: returns (best_t with
+    +inf on a miss, best_kind int32, best_idx int32)."""
+    if meta.media:
+        raise NotImplementedError(
+            "constant media (media_pass) are not ported yet")
+    R = ro.shape[0]
+    inf = torch.full((R,), INF, dtype=torch.float32, device=ro.device)
+    zero = torch.zeros(R, dtype=torch.int64, device=ro.device)
+
+    sph_t, sph_i = sphere_pass(data, meta, ro, rd, time, T_MIN, inf, zero,
+                               chunk)
+    qt, qi = quad_pass(data, meta, qf, ro, rd, T_MIN, inf, zero, chunk)
+
+    # merge (spheres win ties: world.cuh loop order)
+    q_better = qt < sph_t
+    best_t = torch.where(q_better, qt, sph_t)
+    best_kind = torch.where(q_better, K_QUAD,
+                            torch.where(torch.isfinite(sph_t), K_SPHERE,
+                                        K_NONE))
+    best_idx = torch.where(q_better, qi, sph_i)
+    return best_t, best_kind.to(torch.int32), best_idx.to(torch.int32)

@@ -1,0 +1,251 @@
+"""Persistent wavefront integrator with in-window ray regeneration.
+
+The port of ``mort_tpu.render.wavefront`` (single device).  A fixed pool of
+P lanes stays busy: a *task* is a (pixel, sample-chunk) pair — ``spt``
+stratified samples of one pixel.  A lane accumulates its chunk's radiance in
+``Lsum`` and respawns the next camera ray of its chunk the moment a path
+terminates, inside the bounce loop; the framebuffer add happens once per
+finished chunk:
+
+  while tasks remain or lanes active:
+      deposit: lanes whose chunk completed add Lsum into the framebuffer
+      refill:  idle lanes claim the next tasks via a cumsum-rank
+      window:  several intersect+shade bounce steps; a terminated path
+               folds into Lsum and respawns the lane on the next sample
+
+The counter-based RNG keys draws by (pixel, sample, bounce, slot), so the
+per-sample radiance is the JAX package's; only the accumulation order
+differs.  ``jax.lax.while_loop``/``fori_loop`` become Python loops: the
+loop condition is read on the host once per round (one device sync), and
+the deposit selects its lanes with a mask (another).
+
+Not ported yet: the mesh-sharded path, and the scenes that need media,
+lights or fallback (image/noise) textures — hence also the JAX package's
+deferred-texture mode, which only such scenes select.  All raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..camera import Camera, derive_basis, get_rays_soa
+from ..rng import DEFAULT_SEED
+from ..scene.build import SceneData, SceneMeta
+from . import closest_hit as ch
+from . import vec as v3
+from .hitshade import check_supported, finalize_and_shade
+from .intersect import quad_frames
+from .primtable import build_prim_table
+from .vec import V3
+
+
+def _span_core(data: SceneData, meta: SceneMeta, cam: Camera, seed: int,
+               fb: torch.Tensor, task_start: int, task_end: int, *,
+               pool: int, window: int, spt: int, use_kernel: bool,
+               no_defocus: bool):
+    """Run the wavefront over chunk-tasks [task_start, task_end),
+    accumulating into ``fb`` [W*H, 3] in place.  Returns
+    (iterations, useful_segments) as Python ints."""
+    dev = fb.device
+    W, H = cam.image_width, cam.image_height
+    per = W * H
+    spp = cam.sqrt_spp * cam.sqrt_spp
+    total = task_end
+    inv_spp = float(np.float32(1.0 / spp))
+    basis = derive_basis(cam)
+    qf = quad_frames(data)
+    table, mat_cols = build_prim_table(data, meta, qf)
+    # every kernel operand built ONCE per span, outside the bounce loop
+    packed = ch.pack_scene(data, meta, qf, table)
+    P = pool
+    bg = cam.background
+    bg_v = V3(bg[0], bg[1], bg[2])
+
+    def closest(ro, rd, tme):
+        if use_kernel:
+            return ch.closest_hit(packed, ro, rd, tme)
+        return ch.split_row(ch.closest_hit_reference(
+            packed, ch.stack_rays(ro, rd, tme)))
+
+    def bounce_step(s):
+        act = s["alive"]
+        s["useful"] += act.sum()
+        pixel, sample, bounce = s["pixel"], s["sample"], s["bounce"]
+        ro, rd, tme, beta, L = s["ro"], s["rd"], s["tme"], s["beta"], s["L"]
+        bt, bk, bi, row_t = closest(ro, rd, tme)
+        out = finalize_and_shade(data, meta, qf, table, mat_cols, ro, rd,
+                                 tme, bt, bk, bi, seed, pixel, sample,
+                                 bounce, row_t=row_t)
+
+        miss = act & ~out.hit
+        lterm = act & out.hit & ~out.scatter_ok
+        cont = act & out.hit & out.scatter_ok
+
+        L = L + v3.where(miss, beta * bg_v, 0.0)
+        L = L + v3.where(lterm, beta * out.emission, 0.0)
+        L = L + v3.where(cont & ~out.skip_pdf, beta * out.emission, 0.0)
+        beta = v3.where(cont, beta * out.weight, beta)
+        ro = v3.where(cont, out.p, ro)
+        rd = v3.where(cont, out.new_dir, rd)
+        bounce = torch.where(cont, bounce + 1, bounce)
+        path_on = cont & (bounce < cam.bounce_limit)
+
+        # fold the finished path into the lane's chunk sum and respawn on
+        # the next sample of the chunk, inside the window
+        path_done = act & ~path_on
+        s["Lsum"] = s["Lsum"] + v3.where(path_done, L, 0.0)
+        more = path_done & (sample + 1 < s["send"])
+        sample = torch.where(more, sample + 1, sample)
+        ro_n, rd_n, t_n = get_rays_soa(cam, basis, seed, pixel, sample,
+                                       no_defocus=no_defocus)
+        s["ro"] = v3.where(more, ro_n, ro)
+        s["rd"] = v3.where(more, rd_n, rd)
+        s["tme"] = torch.where(more, t_n, tme)
+        s["bounce"] = torch.where(more, 0, bounce)
+        s["L"] = v3.where(more, 0.0, L)
+        s["beta"] = v3.where(more, 1.0, beta)
+        s["sample"] = sample
+        s["alive"] = path_on | more
+
+    def round_(s, counter):
+        # --- deposit chunk sums finished in the previous window: only the
+        # depositing lanes are selected (index_add_ has no drop mode) ---
+        pend = s["pend"]
+        lanes = pend.nonzero().squeeze(1)
+        Lsum = s["Lsum"]
+        fb.index_add_(0, s["pixel"][lanes],
+                      Lsum.to_rows()[lanes] * inv_spp)
+        Lsum = v3.where(pend, 0.0, Lsum)
+
+        # --- refill idle lanes with fresh chunk-tasks ---
+        alive = s["alive"]
+        idle = ~alive
+        ranks = torch.cumsum(idle.to(torch.int64), 0) - 1
+        task = counter + torch.where(idle, ranks, 0)
+        has = idle & (task < total)
+        new_pixel = task % per
+        s0 = torch.div(task, per, rounding_mode="floor") * spt
+        pixel = torch.where(has, new_pixel, s["pixel"])
+        sample = torch.where(has, s0, s["sample"])
+        s["send"] = torch.where(has, torch.clamp(s0 + spt, max=spp),
+                                s["send"])
+        ro_n, rd_n, t_n = get_rays_soa(cam, basis, seed, pixel, sample,
+                                       no_defocus=no_defocus)
+        s["ro"] = v3.where(has, ro_n, s["ro"])
+        s["rd"] = v3.where(has, rd_n, s["rd"])
+        s["tme"] = torch.where(has, t_n, s["tme"])
+        s["bounce"] = torch.where(has, 0, s["bounce"])
+        s["L"] = v3.where(has, 0.0, s["L"])
+        s["Lsum"] = v3.where(has, 0.0, Lsum)
+        s["beta"] = v3.where(has, 1.0, s["beta"])
+        s["pixel"], s["sample"] = pixel, sample
+        s["alive"] = alive | has
+        counter = counter + idle.sum()
+
+        entering = s["alive"]
+        for _ in range(window):
+            bounce_step(s)
+        # lanes whose chunk completed during the window deposit next round
+        s["pend"] = entering & ~s["alive"]
+        return counter
+
+    zi = torch.zeros(P, dtype=torch.int64, device=dev)
+    zb = torch.zeros(P, dtype=torch.bool, device=dev)
+    s = {
+        "alive": zb, "pend": zb, "pixel": zi, "sample": zi, "send": zi,
+        "ro": V3.zeros(P, dev), "rd": V3.ones(P, dev),
+        "tme": torch.zeros(P, dtype=torch.float32, device=dev),
+        "bounce": zi, "L": V3.zeros(P, dev), "Lsum": V3.zeros(P, dev),
+        "beta": V3.ones(P, dev),
+        "useful": torch.zeros((), dtype=torch.int64, device=dev),
+    }
+    counter = torch.tensor(task_start, dtype=torch.int64, device=dev)
+    iters = 0
+    while True:
+        # the loop condition, read on the host: one sync per round
+        go = torch.stack([counter < total, s["alive"].any(),
+                          s["pend"].any()]).any()
+        if not bool(go):
+            break
+        counter = round_(s, counter)
+        iters += 1
+    return iters, int(s["useful"])
+
+
+def default_pool(meta: SceneMeta, n_pixels: int) -> int:
+    n_prims = max(1, meta.n_spheres + meta.n_quads)
+    pool = 1 << 18 if n_prims <= 1024 else 1 << 16
+    return min(pool, max(1024, -(-n_pixels // 1024) * 1024))
+
+
+def render_wavefront(data: SceneData, meta: SceneMeta, cam: Camera,
+                     device: torch.device | str, seed=DEFAULT_SEED,
+                     pool=None, max_paths_per_call=200_000_000, fb=None,
+                     task_range=None, scrub_nan=True, window=None, spt=None,
+                     use_kernel=None, mesh=None, return_stats=False):
+    """Wavefront render on ``device``; returns linear [H,W,3] float32
+    (row 0 = bottom).
+
+    The task space — W*H pixels x ceil(spp/spt) sample-chunks — is split
+    into spans of at most ``max_paths_per_call`` camera paths.  ``fb`` /
+    ``task_range`` (in chunk-task units) allow external accumulation; pass
+    ``scrub_nan=False`` to get the raw accumulator back.
+
+    ``use_kernel``: None (default) runs the CUDA closest-hit kernel on a
+    CUDA device and its plain version on the CPU; False forces the plain
+    version (on any device, to compare against the kernel); True on a CPU
+    device raises.
+
+    ``return_stats``: return ``(img, stats)`` with ``iterations``,
+    ``useful_segments`` and ``slots_executed``.
+    """
+    if mesh is not None:
+        raise NotImplementedError("mesh-sharded rendering is not ported yet")
+    # fallback (image/noise) textures, and with them the JAX package's
+    # deferred-texture mode, raise here
+    check_supported(meta)
+    device = torch.device(device)
+    if use_kernel is None:
+        use_kernel = device.type == "cuda"
+    elif use_kernel and device.type != "cuda":
+        raise ValueError("use_kernel=True needs a CUDA device")
+    data = data.to(device)
+    cam = cam.to(device)
+    W, H = cam.image_width, cam.image_height
+    WH = W * H
+    spp = cam.sqrt_spp ** 2
+    if spt is None:
+        spt = min(spp, 4 if cam.bounce_limit >= 32 else 8)
+    if window is None:
+        deep = cam.bounce_limit >= 32
+        window = (4 if deep else 8) if use_kernel else 3
+        if spp == 1:
+            window = min(window, 3)
+    n_chunks = -(-spp // spt)
+    no_defocus = bool(cam.defocus_angle.item() <= 0.0)
+    if pool is None:
+        pool = default_pool(meta, WH)
+    if fb is None:
+        fb = torch.zeros((WH, 3), dtype=torch.float32, device=device)
+    else:
+        fb = fb.reshape(WH, 3).to(device=device, dtype=torch.float32,
+                                  copy=True)
+    tasks_per_call = max(pool, max_paths_per_call // spt)
+    start, end = task_range if task_range is not None else (0, WH * n_chunks)
+
+    stats = {"iterations": 0, "useful_segments": 0, "slots_executed": 0}
+    for s0 in range(start, end, tasks_per_call):
+        s1 = min(s0 + tasks_per_call, end)
+        iters, useful = _span_core(
+            data, meta, cam, int(seed), fb, s0, s1, pool=int(pool),
+            window=int(window), spt=int(spt), use_kernel=bool(use_kernel),
+            no_defocus=no_defocus)
+        stats["iterations"] += iters
+        stats["useful_segments"] += useful
+        stats["slots_executed"] += iters * int(window) * int(pool)
+    if scrub_nan:
+        fb = torch.where(torch.isnan(fb), 0.0, fb)
+    img = fb.reshape(H, W, 3)
+    return (img, stats) if return_stats else img

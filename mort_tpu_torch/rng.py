@@ -1,0 +1,97 @@
+"""Counter-based Philox4x32-10, bit-exact with ``mort_tpu.rng``.
+
+Every random draw is a pure function of its counter
+
+    u = philox4x32(counter=(pixel, sample, bounce+1, slot), key=(seed, SEED2))
+
+so any re-batching or compaction of rays draws identical samples, and no
+``torch.Generator`` or other global RNG state exists.
+
+Torch's ``uint32`` has too few kernels to rely on, so the 32-bit words live
+in ``int64`` tensors holding values in [0, 2^32).  A plain int64 product of
+two u32 words can exceed 2^63, so ``mulhi``/``mullo`` are built from 16-bit
+limbs of the (constant) multiplier: every partial product stays below 2^49.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# Philox4x32 round constants.
+PHILOX_M0 = 0xD2511F53
+PHILOX_M1 = 0xCD9E8D57
+PHILOX_W0 = 0x9E3779B9
+PHILOX_W1 = 0xBB67AE85
+PHILOX_ROUNDS = 10
+
+# Second key word; the first is the user seed.
+SEED2 = 0xC0FFEE42
+DEFAULT_SEED = 69420
+
+# Draw-slot layout (identical to mort_tpu.rng).  Camera-level draws use
+# bounce counter 0; per-bounce draws use bounce counter (1 + bounce).
+SLOT_CAM_PIXEL = 0      # (jitter_x, jitter_y, time, _)
+SLOT_CAM_LENS = 1       # (defocus_u, defocus_v, _, _)
+
+SLOT_MIX = 0            # (mixture_choice, light_pick, dielectric_u, _)
+SLOT_MAT_DIR = 1        # (u1, u2, _, _) cosine / isotropic direction
+SLOT_LIGHT_DIR = 2      # (u1, u2, _, _) light sphere-cone / quad sample
+SLOT_FUZZ = 3           # (u1, u2, _, _) metal fuzz unit vector
+SLOT_MEDIUM0 = 4        # one block; medium m reads word m (m < MAX_MEDIA)
+MAX_MEDIA = 4
+SLOTS_PER_BOUNCE = SLOT_MEDIUM0 + 1
+
+_M32 = 0xFFFFFFFF
+
+
+def _mulhilo(a: torch.Tensor, m: int):
+    """(hi, lo) words of the 64-bit product a * m, for u32 words ``a`` held
+    in int64 and a u32 constant ``m``: m = mh * 2^16 + ml, so with
+    p = a * ml and q = a * mh + (p >> 16) (both < 2^49), a * m =
+    q * 2^16 + (p & 0xFFFF)."""
+    p = a * (m & 0xFFFF)
+    q = a * (m >> 16) + (p >> 16)
+    return q >> 16, ((q & 0xFFFF) << 16) | (p & 0xFFFF)
+
+
+def _word(x, device) -> torch.Tensor:
+    """A counter word as an int64 tensor in [0, 2^32) (u32 wrap-around of
+    negative ints, as ``jnp.asarray(x, uint32)`` does)."""
+    return torch.as_tensor(x, device=device).to(torch.int64) & _M32
+
+
+def _device_of(*xs):
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            return x.device
+    return torch.device("cpu")
+
+
+def philox4x32(c0, c1, c2, c3, k0: int, k1: int):
+    """One Philox4x32-10 block: four u32 words (int64 tensors) from four
+    counter words (tensors or ints, broadcast together)."""
+    dev = _device_of(c0, c1, c2, c3)
+    c0, c1, c2, c3 = (_word(c, dev) for c in (c0, c1, c2, c3))
+    k0, k1 = int(k0) & _M32, int(k1) & _M32
+    for _ in range(PHILOX_ROUNDS):
+        hi0, lo0 = _mulhilo(c0, PHILOX_M0)
+        hi1, lo1 = _mulhilo(c2, PHILOX_M1)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + PHILOX_W0) & _M32
+        k1 = (k1 + PHILOX_W1) & _M32
+    return torch.broadcast_tensors(c0, c1, c2, c3)
+
+
+def _bits_to_unit(x: torch.Tensor) -> torch.Tensor:
+    # 24-bit mantissa -> [0, 1), float32 exact.
+    return (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def uniform4(seed, pixel, sample, bounce_plus1, slot):
+    """Four independent uniforms in [0, 1) for the given counter.
+
+    ``pixel``/``sample`` may be tensors (broadcast together);
+    ``bounce_plus1`` and ``slot`` are tensors or ints (0 = camera-level).
+    """
+    r = philox4x32(pixel, sample, bounce_plus1, slot, seed, SEED2)
+    return tuple(_bits_to_unit(w) for w in r)
