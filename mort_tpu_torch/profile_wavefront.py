@@ -1,8 +1,9 @@
 """Where the wavefront's time goes on the card: one torch.profiler window.
 
-    python -m mort_tpu_torch.profile_wavefront [--tasks N]
+    python -m mort_tpu_torch.profile_wavefront [--scene {1..10}] [--tasks N]
 
-Renders scene 1 at its bench config (1200x675, 100 spp, depth 20) over the
+Renders a reference scene at its code-true config (scene 1, the default:
+1200x675, 100 spp, depth 20; scene 9: 400x400, 250 spp, depth 4) over the
 first ``--tasks`` chunk-tasks, after a warm-up span: once plainly for the
 wall time, then once under ``torch.profiler`` (CPU + CUDA).  Prints the
 device time by kernel, the closest-hit kernel's share of it, the device's
@@ -34,24 +35,26 @@ def _device_us(evt) -> float:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scene", type=int, default=1, choices=range(1, 11))
     ap.add_argument("--tasks", type=int, default=1 << 20,
-                    help="chunk-tasks to render (8 paths each)")
+                    help="chunk-tasks to render (up to 8 paths each)")
     args = ap.parse_args(argv)
 
     dev = require_cuda()
     card = card_line()
-    world, cam = sc.random_spheres()
+    world, cam = sc.build_scene(args.scene)
     data, meta = world.compile()
     kw = dict(seed=69420, task_range=(0, args.tasks), return_stats=True)
     render_wavefront(data, meta, cam, dev, seed=1, task_range=(0, 4096))
 
     torch.cuda.synchronize()
-    ch.launch_count = 0
+    for mode in ch.launch_count:
+        ch.launch_count[mode] = 0
     t0 = time.perf_counter()
     _, stats = render_wavefront(data, meta, cam, dev, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    steps = ch.launch_count
+    steps = sum(ch.launch_count.values())
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -63,7 +66,9 @@ def main(argv=None):
     n_launch = sum(e.count for e in kernels)
     ch_us = sum(_device_us(e) for e in kernels if "closest_hit" in e.key)
 
-    print(f"scene1 bench config, tasks [0, {args.tasks}): wall {wall:.4f} s "
+    print(f"scene{args.scene} {cam.image_width}x{cam.image_height} @ "
+          f"{cam.sqrt_spp ** 2}spp depth {cam.bounce_limit}, tasks "
+          f"[0, {args.tasks}): wall {wall:.4f} s "
           f"unprofiled, {stats['iterations']} rounds, {steps} bounce steps, "
           f"occupancy {stats['useful_segments'] / stats['slots_executed']:.4f}"
           f" | {card}")

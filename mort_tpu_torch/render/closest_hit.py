@@ -1,7 +1,8 @@
 """Closest sphere/quad hit + joined shading row: the hand-written kernel.
 
-The port of the accel-``"none"`` part of ``mort_tpu.render.pallas_intersect``
-(``_closest_hit`` / ``_make_kernel``, ``pack_for_kernel``,
+The port of ``mort_tpu.render.pallas_intersect`` (``_closest_hit`` /
+``_make_kernel`` in its accel modes ``"none"``, ``"cull"`` and ``"bvh"``,
+``cluster_boxes``, ``cluster_tree``, ``auto_accel``, ``pack_for_kernel``,
 ``closest_hit_pallas``).  The TPU kernel's limb-packed bf16 dots and one-hot
 MXU gathers existed only to serve the MXU; here the per-(ray, primitive)
 terms are plain float32 arithmetic and the winner's joined row is one
@@ -30,8 +31,18 @@ Quads use the general plane/window test of ``intersect.quad_pass``.
 Earlier rows win ties (strict ``<``), and a sphere beats a quad on an exact
 tie.  Non-surface and padding rows never win.
 
-Dispatch: a CUDA tensor always launches the kernel (a failure raises); a
-CPU tensor takes the plain version.  ``launch_count`` counts launches.
+Accel modes (``PackedScene.accel``): ``"none"`` tests every primitive;
+``"cull"`` tests the CL-sized sub-clusters of ``cluster_boxes`` behind an
+AABB slab test; ``"bvh"`` traverses the implicit heap ``cluster_tree`` over
+them.  A mode changes which primitives a ray tests, not the function's
+value: the kernel keeps the lexicographic minimum over (t, row) and prunes
+only boxes that cannot hold a winner or a tie, so every mode returns the
+result of ``"none"`` bit for bit, and ``closest_hit_reference`` is the
+plain version of all three.  ``auto_accel`` is the JAX package's policy.
+
+Dispatch: a CUDA tensor always launches the kernel of the packed mode (a
+failure raises; no mode falls back to another); a CPU tensor takes the
+plain version whatever the mode.  ``launch_count[mode]`` counts launches.
 """
 
 from __future__ import annotations
@@ -55,8 +66,26 @@ ROW_IDX = 29
 SPH_COLS = 10    # cx cy cz  vx vy vz  c.c-r^2  2c.cv  |cv|^2  surface
 QUAD_COLS = 13   # n(3) D  vxw(3) qa  wxu(3) qb  surface
 
-# Kernel launches since import (or since a caller reset it to 0).
-launch_count = 0
+CK = 512         # sphere/quad rows are padded to CK for the sub-clusters
+CL = 128         # primitives per sub-cluster (one AABB)
+STACK = 32       # bvh traversal stack depth: holds a heap of 2^30 leaves
+BIG = 3.0e38     # inverted-box bound
+BOX_COLS = 8     # cull boxes: lo xyz, hi xyz, 0, 0
+NODE_COLS = 6    # bvh nodes: lo xyz, hi xyz
+
+# The auto accel policy's crossover (the JAX package's BVH_MIN_PRIMS):
+# "none" up to 8192 primitives, "bvh" above.
+BVH_MIN_PRIMS = 8192
+ACCELS = ("none", "cull", "bvh")
+_MODE = {"none": 0, "cull": 1, "bvh": 2}
+
+# Kernel launches per mode since import (or since a caller reset them).
+launch_count = dict.fromkeys(ACCELS, 0)
+
+
+def auto_accel(n_prims: int) -> str:
+    """The accel mode picked when none is asked for."""
+    return "none" if n_prims <= BVH_MIN_PRIMS else "bvh"
 
 
 @dataclass(frozen=True)
@@ -68,16 +97,95 @@ class PackedScene:
     n_quad: int
     joined: torch.Tensor   # [Ns_rows + Nq_rows, 27] f32 (primtable)
     quad_base: int         # global row of quad 0 in ``joined`` (= Ns_rows)
+    accel: str = "none"    # "none", "cull" or "bvh"
+    # "cull": cluster_boxes [n_sub, BOX_COLS]; "bvh": cluster_tree
+    # [2L, NODE_COLS]; "none": empty
+    accel_tab: torch.Tensor | None = None
+    n_sph_sub: int = 0     # sub-clusters that hold sphere rows (the first)
+    n_accel: int = 0       # "cull": n_sub; "bvh": L (leaf s is node L + s)
 
 
 def _dot3(ax, ay, az, bx, by, bz):
     return (ax * bx + ay * by) + az * bz
 
 
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _n_sph_sub(data: SceneData, meta: SceneMeta) -> int:
+    if not meta.n_spheres:
+        return 0
+    return _round_up(max(data.sph_center.shape[0], CK), CK) // CL
+
+
+def _sub_boxes(lo, hi, surf, n_pad):
+    """Per-row boxes -> [n_pad // CL, 8] sub-cluster boxes; skip and
+    padding rows get inverted boxes (min > max)."""
+    n = lo.shape[0]
+    lo = torch.where(surf[:, None], lo, BIG)
+    hi = torch.where(surf[:, None], hi, -BIG)
+    pad = torch.full((n_pad - n, 3), BIG, dtype=lo.dtype, device=lo.device)
+    lo = torch.cat([lo, pad]).reshape(-1, CL, 3).amin(dim=1)
+    hi = torch.cat([hi, -pad]).reshape(-1, CL, 3).amax(dim=1)
+    return torch.cat([lo, hi, torch.zeros_like(lo[:, :2])], dim=1)
+
+
+def cluster_boxes(data: SceneData, meta: SceneMeta) -> torch.Tensor:
+    """[n_sub, 8] f32 conservative AABBs (min xyz, max xyz, 0, 0) of the
+    CL-sized sub-clusters of primitive rows, sphere sub-clusters first
+    (rows padded to a CK multiple), then quad sub-clusters — the JAX
+    package's ``cluster_boxes``.  Moving spheres get their swept box over
+    t in [0, 1]; quads a +-1e-4 pad around their four corners."""
+    parts = []
+    if meta.n_spheres:
+        c, cv = data.sph_center, data.sph_cvec
+        r = torch.abs(data.sph_radius)[:, None]
+        parts.append(_sub_boxes(torch.minimum(c, c + cv) - r,
+                                torch.maximum(c, c + cv) + r,
+                                data.sph_surface, _n_sph_sub(data, meta) * CL))
+    if meta.n_quads:
+        Q, u, v = data.quad_Q, data.quad_u, data.quad_v
+        corners = torch.stack([Q, Q + u, Q + v, Q + u + v], dim=0)
+        n_pad = _round_up(max(Q.shape[0], CK), CK)
+        parts.append(_sub_boxes(corners.amin(dim=0) - 1e-4,
+                                corners.amax(dim=0) + 1e-4,
+                                data.quad_surface, n_pad))
+    return torch.cat(parts, dim=0).contiguous()
+
+
+def cluster_tree(cbox: torch.Tensor) -> torch.Tensor:
+    """Implicit-heap AABB tree over the (Morton-ordered, so spatially
+    coherent) sub-clusters: [2L, 6] f32 (lo xyz, hi xyz) with node 1 the
+    root, children (2k, 2k+1) and leaves at [L, L + n_sub); row 0 and
+    padding leaves carry inverted boxes — the JAX package's
+    ``cluster_tree``."""
+    n_sub = cbox.shape[0]
+    L = 1
+    while L < n_sub:
+        L *= 2
+    pad = torch.full((L - n_sub, 3), BIG, dtype=cbox.dtype,
+                     device=cbox.device)
+    levels = [(torch.cat([cbox[:, 0:3], pad]),
+               torch.cat([cbox[:, 3:6], -pad]))]
+    while levels[0][0].shape[0] > 1:
+        lo, hi = levels[0]
+        levels.insert(0, (torch.minimum(lo[0::2], lo[1::2]),
+                          torch.maximum(hi[0::2], hi[1::2])))
+    root_pad = torch.full((1, 3), BIG, dtype=cbox.dtype, device=cbox.device)
+    los = torch.cat([root_pad] + [lo for lo, _ in levels])
+    his = torch.cat([-root_pad] + [hi for _, hi in levels])
+    return torch.cat([los, his], dim=1).contiguous()
+
+
 def pack_scene(data: SceneData, meta: SceneMeta, qf: QuadFrames,
-               table: torch.Tensor) -> PackedScene:
+               table: torch.Tensor, accel: str = "none") -> PackedScene:
     """Per-primitive records for the closest-hit scan (host-side
-    precompute of every ray-independent term), and the joined table."""
+    precompute of every ray-independent term), the joined table and the
+    accel mode's boxes or tree."""
+    if accel not in ACCELS:
+        raise ValueError(f"closest_hit: accel must be one of {ACCELS}, got "
+                         f"{accel!r}")
     c, cv, r = data.sph_center, data.sph_cvec, data.sph_radius
     cx, cy, cz = c.unbind(1)
     vx, vy, vz = cv.unbind(1)
@@ -92,10 +200,19 @@ def pack_scene(data: SceneData, meta: SceneMeta, qf: QuadFrames,
         qf.normal, qf.D[:, None], qf.vxw, qf.qa[:, None], qf.wxu,
         qf.qb[:, None], data.quad_surface.to(torch.float32)[:, None],
     ], dim=1).contiguous()
+    accel_tab, n_accel = None, 0
+    if accel != "none":
+        accel_tab = cluster_boxes(data, meta)
+        n_accel = accel_tab.shape[0]
+        if accel == "bvh":
+            accel_tab = cluster_tree(accel_tab)
+            n_accel = accel_tab.shape[0] // 2
     return PackedScene(sph=sph, n_sph=int(meta.n_spheres), quad=quad,
                        n_quad=int(meta.n_quads),
                        joined=table.contiguous(),
-                       quad_base=int(data.sph_center.shape[0]))
+                       quad_base=int(data.sph_center.shape[0]),
+                       accel=accel, accel_tab=accel_tab,
+                       n_sph_sub=_n_sph_sub(data, meta), n_accel=n_accel)
 
 
 def stack_rays(ro: V3, rd: V3, time: torch.Tensor) -> torch.Tensor:
@@ -188,7 +305,6 @@ def _check(name, x, dtype, device, ndim, cols=None):
 
 
 def _launch(packed: PackedScene, rays: torch.Tensor, t_min: float):
-    global launch_count
     from .._build import load_library
 
     dev = rays.device
@@ -205,6 +321,20 @@ def _launch(packed: PackedScene, rays: torch.Tensor, t_min: float):
             or packed.quad_base + packed.n_quad > n_join
             or packed.n_sph > packed.quad_base or n_join < 1):
         raise ValueError("closest_hit: inconsistent PackedScene shapes")
+    accel = packed.accel
+    accel_ptr = 0
+    if accel != "none":
+        tab, n_acc, n_ss = packed.accel_tab, packed.n_accel, packed.n_sph_sub
+        cols = BOX_COLS if accel == "cull" else NODE_COLS
+        _check("accel_tab", tab, torch.float32, dev, 2, cols)
+        n_leaves = n_acc if accel == "cull" else tab.shape[0] - n_acc
+        if ((accel == "bvh" and (tab.shape[0] != 2 * n_acc
+                                 or n_acc > 2 ** (STACK - 2)))
+                or (accel == "cull" and tab.shape[0] != n_acc)
+                or n_ss * CL < packed.n_sph
+                or (n_leaves - n_ss) * CL < packed.n_quad):
+            raise ValueError("closest_hit: inconsistent accel table")
+        accel_ptr = tab.data_ptr()
     R = rays.shape[1]
     if R >= 2 ** 31 // ROW_K:
         raise ValueError(f"closest_hit: {R} rays exceed the int32 range")
@@ -217,20 +347,21 @@ def _launch(packed: PackedScene, rays: torch.Tensor, t_min: float):
             packed.sph.data_ptr(), packed.n_sph,
             packed.quad.data_ptr(), packed.n_quad,
             packed.joined.data_ptr(), k_join, packed.quad_base,
-            ctypes.c_float(t_min), out.data_ptr(), stream)
+            ctypes.c_float(t_min), _MODE[accel], accel_ptr,
+            packed.n_sph_sub, packed.n_accel, out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(
-            f"closest_hit kernel launch failed: CUDA error {rc} "
+            f"closest_hit kernel launch failed ({accel}): CUDA error {rc} "
             f"({lib.mort_cuda_error_string(rc).decode()})")
-    launch_count += 1
+    launch_count[accel] += 1
     return out
 
 
 def closest_hit(packed: PackedScene, ro: V3, rd: V3, time: torch.Tensor,
                 t_min: float = T_MIN):
     """Closest hit of R rays: (t [R] with +inf misses, kind int32 [R],
-    idx int32 [R], row_t [32, R]).  CUDA tensors launch the kernel; CPU
-    tensors take ``closest_hit_reference``."""
+    idx int32 [R], row_t [32, R]).  CUDA tensors launch the kernel of
+    ``packed.accel``; CPU tensors take ``closest_hit_reference``."""
     rays = stack_rays(ro, rd, time)
     if rays.device.type == "cuda":
         row = _launch(packed, rays, t_min)

@@ -1,16 +1,20 @@
 """Batched ray-scene intersection: the port's reference intersector.
 
 The port of ``mort_tpu.render.intersect`` (``quad_frames``, ``sphere_pass``,
-``quad_pass``, ``intersect_best``).  The reference's sequential closest-hit
-loop over tagged registries (world.cuh:105-171) becomes a chunked
-min-reduction over [R, C] tensors.  The ray-primitive inner products are
-written as elementwise products, never ``torch.matmul``, so no TF32 question
-can arise.
+``quad_pass``, ``media_pass``, ``intersect_best``).  The reference's
+sequential closest-hit loop over tagged registries (world.cuh:105-171)
+becomes a chunked min-reduction over [R, C] tensors.  The ray-primitive
+inner products are written as elementwise products, never
+``torch.matmul``, so no TF32 question can arise.
 
-Closest-hit ties resolve to the earlier registry (sphere < quad), matching
-the reference's strict ``t < closest_so_far`` update rule.  Constant media
-(``media_pass``) are not ported yet: ``intersect_best`` raises
-``NotImplementedError`` for a scene that has them.
+Constant media (objects.cuh:396-434) are resolved after all surfaces in
+registry order with a running closest-t (``media_pass``), as in the JAX
+package: the free-flight acceptance test is monotone in t_max, so a sample
+that the tighter clamp rejects would have lost the closest-hit comparison
+anyway.
+
+Closest-hit ties resolve to the earlier registry (sphere < quad < media),
+matching the reference's strict ``t < closest_so_far`` update rule.
 """
 
 from __future__ import annotations
@@ -19,11 +23,14 @@ from dataclasses import dataclass
 
 import torch
 
+from .. import rng as rngm
 from ..scene.build import SceneData, SceneMeta
+from . import vec as v3
 from .vec import safe_sqrt
 
 INF = float("inf")
 T_MIN = 1e-3          # world-level epsilon (camera.cuh:97)
+MEDIUM_EPS = 1e-4     # boundary re-hit epsilon (objects.cuh:404)
 
 # best-hit kind codes
 K_NONE = 0
@@ -164,13 +171,97 @@ def quad_pass(data: SceneData, meta: SceneMeta, qf: QuadFrames, ro, rd, t_min,
     return best_t, best_idx
 
 
+def _sphere_roots_single(data: SceneData, row: int, ro, rd):
+    """Both quadratic roots of one sphere over (-inf, inf), for media
+    boundaries (objects.cuh:400-404).  Static spheres only: the reference's
+    media wrap non-moving boundaries.  ro/rd are SoA V3."""
+    c = data.sph_center[row]
+    r = data.sph_radius[row]
+    oc = ro - v3.V3(c[0], c[1], c[2])
+    a = v3.length_sq(rd)
+    half_b = v3.dot(oc, rd)
+    c_term = v3.length_sq(oc) - r * r
+    disc = half_b * half_b - a * c_term
+    sq = safe_sqrt(disc)
+    ok = disc >= 0.0
+    root1 = (-half_b - sq) / a
+    root2 = (-half_b + sq) / a
+    return [(root1, ok), (root2, ok)]
+
+
+def _quad_t_single(data: SceneData, qf: QuadFrames, row: int, ro, rd):
+    """One quad's plane hit over (-inf, inf), for media boundaries."""
+    nrm = v3.V3(*qf.normal[row])
+    vxw = v3.V3(*qf.vxw[row])
+    wxu = v3.V3(*qf.wxu[row])
+    denom = v3.dot(rd, nrm)
+    ok_denom = torch.abs(denom) >= 1e-8
+    t = torch.where(ok_denom,
+                    (qf.D[row] - v3.dot(ro, nrm))
+                    / torch.where(ok_denom, denom, 1.0),
+                    -1.0)
+    alpha = v3.dot(ro, vxw) + t * v3.dot(rd, vxw) - qf.qa[row]
+    beta = v3.dot(ro, wxu) + t * v3.dot(rd, wxu) - qf.qb[row]
+    ok = (ok_denom & (alpha >= 0) & (alpha <= 1) & (beta >= 0)
+          & (beta <= 1))
+    return [(t, ok)]
+
+
+def media_pass(data: SceneData, meta: SceneMeta, qf: QuadFrames, ro, rd,
+               seed, pixel, sample, bounce, t_min, best_t, best_kind,
+               best_idx):
+    """Constant-media free-flight sampling (objects.cuh:396-434) after all
+    surfaces, with a running closest-t.  ro/rd are SoA V3.  Returns
+    (best_t, best_kind, best_idx) with medium m as kind ``K_MEDIUM0 + m``,
+    idx m."""
+    if not meta.media:
+        return best_t, best_kind, best_idx
+    # ONE philox block serves up to 4 media: medium m reads word m
+    u_media = rngm.uniform4(seed, pixel, sample, 1 + bounce,
+                            rngm.SLOT_MEDIUM0)
+    for m, med in enumerate(meta.media):
+        cands = []
+        for row in med.sphere_rows:
+            cands += _sphere_roots_single(data, row, ro, rd)
+        for row in med.quad_rows:
+            cands += _quad_t_single(data, qf, row, ro, rd)
+        # few candidates (media wrap 1-6 faces): pairwise minima
+        t1 = None
+        for t, ok in cands:
+            c = torch.where(ok, t, INF)
+            t1 = c if t1 is None else torch.minimum(t1, c)
+        found1 = torch.isfinite(t1)
+        t2 = None
+        for t, ok in cands:
+            c = torch.where(ok & (t > t1 + MEDIUM_EPS), t, INF)
+            t2 = c if t2 is None else torch.minimum(t2, c)
+        found2 = torch.isfinite(t2)
+
+        rec1 = torch.clamp(t1, min=t_min)
+        rec2 = torch.minimum(t2, best_t)
+        ok = found1 & found2 & (rec1 < rec2)
+        rec1 = torch.clamp(rec1, min=0.0)
+
+        ray_len = v3.length(rd)
+        dist_inside = (rec2 - rec1) * ray_len
+        # u = 0 maps to log -> -inf in the reference (a rejected sample);
+        # the floor keeps gradients through rejected lanes finite
+        hit_dist = data.med_neg_inv_density[m] * torch.log(
+            torch.clamp(u_media[m], min=1e-37))
+        accept = ok & (hit_dist <= dist_inside)
+        t_med = rec1 + hit_dist / ray_len
+
+        best_t = torch.where(accept, t_med, best_t)
+        best_kind = torch.where(accept, K_MEDIUM0 + m, best_kind)
+        best_idx = torch.where(accept, m, best_idx)
+    return best_t, best_kind, best_idx
+
+
 def intersect_best(data: SceneData, meta: SceneMeta, qf: QuadFrames,
-                   ro, rd, time, chunk=512):
-    """world::hit closest-hit search over [R,3] rays: returns (best_t with
-    +inf on a miss, best_kind int32, best_idx int32)."""
-    if meta.media:
-        raise NotImplementedError(
-            "constant media (media_pass) are not ported yet")
+                   ro, rd, time, seed, pixel, sample, bounce, chunk=512):
+    """world::hit closest-hit search over [R,3] rays, media included:
+    returns (best_t with +inf on a miss, best_kind int32, best_idx
+    int32)."""
     R = ro.shape[0]
     inf = torch.full((R,), INF, dtype=torch.float32, device=ro.device)
     zero = torch.zeros(R, dtype=torch.int64, device=ro.device)
@@ -184,6 +275,8 @@ def intersect_best(data: SceneData, meta: SceneMeta, qf: QuadFrames,
     best_t = torch.where(q_better, qt, sph_t)
     best_kind = torch.where(q_better, K_QUAD,
                             torch.where(torch.isfinite(sph_t), K_SPHERE,
-                                        K_NONE))
-    best_idx = torch.where(q_better, qi, sph_i)
-    return best_t, best_kind.to(torch.int32), best_idx.to(torch.int32)
+                                        K_NONE)).to(torch.int32)
+    best_idx = torch.where(q_better, qi, sph_i).to(torch.int32)
+    return media_pass(data, meta, qf, v3.V3.from_rows(ro),
+                      v3.V3.from_rows(rd), seed, pixel, sample, bounce,
+                      T_MIN, best_t, best_kind, best_idx)

@@ -19,10 +19,12 @@ differs.  ``jax.lax.while_loop``/``fori_loop`` become Python loops: the
 loop condition is read on the host once per round (one device sync), and
 the deposit selects its lanes with a mask (another).
 
-Not ported yet: the mesh-sharded path, and the scenes that need media,
-lights or fallback (image/noise) textures — hence also the JAX package's
-deferred-texture mode, which only such scenes select.  All raise
-``NotImplementedError``.
+Every reference scene renders: constant media are sampled after the closest
+hit (``media_pass``), lights through the mixture pdf and fallback
+(image/noise) textures inline in ``finalize_and_shade``.  The JAX package's
+deferred-texture mode is not ported: it served the TPU, whose texel gather
+is serialised, and changes only the float32 association of the image.  Not
+ported yet: the mesh-sharded path (raises ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -35,8 +37,8 @@ from ..rng import DEFAULT_SEED
 from ..scene.build import SceneData, SceneMeta
 from . import closest_hit as ch
 from . import vec as v3
-from .hitshade import check_supported, finalize_and_shade
-from .intersect import quad_frames
+from .hitshade import finalize_and_shade
+from .intersect import T_MIN, media_pass, quad_frames
 from .primtable import build_prim_table
 from .vec import V3
 
@@ -44,7 +46,7 @@ from .vec import V3
 def _span_core(data: SceneData, meta: SceneMeta, cam: Camera, seed: int,
                fb: torch.Tensor, task_start: int, task_end: int, *,
                pool: int, window: int, spt: int, use_kernel: bool,
-               no_defocus: bool):
+               accel: str, no_defocus: bool):
     """Run the wavefront over chunk-tasks [task_start, task_end),
     accumulating into ``fb`` [W*H, 3] in place.  Returns
     (iterations, useful_segments) as Python ints."""
@@ -58,7 +60,7 @@ def _span_core(data: SceneData, meta: SceneMeta, cam: Camera, seed: int,
     qf = quad_frames(data)
     table, mat_cols = build_prim_table(data, meta, qf)
     # every kernel operand built ONCE per span, outside the bounce loop
-    packed = ch.pack_scene(data, meta, qf, table)
+    packed = ch.pack_scene(data, meta, qf, table, accel)
     P = pool
     bg = cam.background
     bg_v = V3(bg[0], bg[1], bg[2])
@@ -75,6 +77,8 @@ def _span_core(data: SceneData, meta: SceneMeta, cam: Camera, seed: int,
         pixel, sample, bounce = s["pixel"], s["sample"], s["bounce"]
         ro, rd, tme, beta, L = s["ro"], s["rd"], s["tme"], s["beta"], s["L"]
         bt, bk, bi, row_t = closest(ro, rd, tme)
+        bt, bk, bi = media_pass(data, meta, qf, ro, rd, seed, pixel, sample,
+                                bounce, T_MIN, bt, bk, bi)
         out = finalize_and_shade(data, meta, qf, table, mat_cols, ro, rd,
                                  tme, bt, bk, bi, seed, pixel, sample,
                                  bounce, row_t=row_t)
@@ -184,7 +188,8 @@ def render_wavefront(data: SceneData, meta: SceneMeta, cam: Camera,
                      device: torch.device | str, seed=DEFAULT_SEED,
                      pool=None, max_paths_per_call=200_000_000, fb=None,
                      task_range=None, scrub_nan=True, window=None, spt=None,
-                     use_kernel=None, mesh=None, return_stats=False):
+                     use_kernel=None, accel=None, mesh=None,
+                     return_stats=False):
     """Wavefront render on ``device``; returns linear [H,W,3] float32
     (row 0 = bottom).
 
@@ -198,14 +203,21 @@ def render_wavefront(data: SceneData, meta: SceneMeta, cam: Camera,
     version (on any device, to compare against the kernel); True on a CPU
     device raises.
 
+    ``accel``: the closest-hit kernel's mode — ``"none"``, ``"cull"`` or
+    ``"bvh"`` (the JAX package's ``pallas_accel``); None picks
+    ``closest_hit.auto_accel`` of the primitive count ("bvh" above 8192).
+    Every mode gives the same closest hits.
+
     ``return_stats``: return ``(img, stats)`` with ``iterations``,
     ``useful_segments`` and ``slots_executed``.
     """
     if mesh is not None:
         raise NotImplementedError("mesh-sharded rendering is not ported yet")
-    # fallback (image/noise) textures, and with them the JAX package's
-    # deferred-texture mode, raise here
-    check_supported(meta)
+    if accel is None:
+        accel = ch.auto_accel(meta.n_spheres + meta.n_quads)
+    elif accel not in ch.ACCELS:
+        raise ValueError(f"accel must be one of {ch.ACCELS} or None, got "
+                         f"{accel!r}")
     device = torch.device(device)
     if use_kernel is None:
         use_kernel = device.type == "cuda"
@@ -241,7 +253,7 @@ def render_wavefront(data: SceneData, meta: SceneMeta, cam: Camera,
         iters, useful = _span_core(
             data, meta, cam, int(seed), fb, s0, s1, pool=int(pool),
             window=int(window), spt=int(spt), use_kernel=bool(use_kernel),
-            no_defocus=no_defocus)
+            accel=accel, no_defocus=no_defocus)
         stats["iterations"] += iters
         stats["useful_segments"] += useful
         stats["slots_executed"] += iters * int(window) * int(pool)

@@ -302,6 +302,30 @@ def out_of_order_spheres(n_spheres=35):
     return w, cam
 
 
+def spread_spheres(nx=32, ny=16, nz=32):
+    """A stress scene beyond the reference ten: nx x ny x nz spheres (16,384
+    by default, above the 8192-primitive crossover, so the auto accel policy
+    picks "bvh") on a jittered grid of spacing 5 filling a 160 x 80 x 160
+    volume, lambertian, metal and glass, seen from above at an angle."""
+    rng = np.random.RandomState(16384)
+    w = World()
+    mats = [w.lambertian(w.solid_color(rng.rand(3) * 0.8 + 0.1))
+            for _ in range(8)]
+    mats += [w.metal([0.8, 0.8, 0.9], 0.1), w.dielectric(1.5)]
+    for i in range(nx):
+        for j in range(ny):
+            for k in range(nz):
+                c = (np.array([i, j, k]) + 0.5 + rng.uniform(-0.25, 0.25, 3)) \
+                    * 5.0 - [80.0, 0.0, 80.0]
+                w.sphere(c, rng.uniform(0.8, 2.0),
+                         mats[rng.randint(len(mats))])
+    cam = make_camera(
+        aspect_ratio=16.0 / 9.0, image_width=400, samples_per_pixel=4,
+        bounce_limit=8, vfov=50, lookfrom=[0, 140, 260], lookat=[0, 40, 0],
+    )
+    return w, cam
+
+
 SCENES = {
     1: lambda: random_spheres(),
     2: two_spheres,

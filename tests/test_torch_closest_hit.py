@@ -141,7 +141,9 @@ def _check(jdata, jmeta, ro, rd, tme, envelope=False):
 
     # the port's reference intersector agrees with the kernel's plain form
     it, ik, ii = intersect_best(data, meta, qf, torch.from_numpy(ro),
-                                torch.from_numpy(rd), torch.from_numpy(tme))
+                                torch.from_numpy(rd), torch.from_numpy(tme),
+                                1, torch.zeros(R, dtype=torch.int64),
+                                torch.zeros(R, dtype=torch.int64), 0)
     err = np.abs(it.numpy()[hit] - t[hit])
     assert (err <= 3e-5 * np.abs(t[hit]) + 1e-5 + slack[hit]).all()
     np.testing.assert_array_equal(ik.numpy(), kind)
@@ -193,12 +195,3 @@ def test_cpu_wrapper_takes_plain_version_and_counts_no_launch():
     assert row.shape == (ch.ROW_K, 64) and row.dtype == np.float32
     assert kind.dtype == np.int32 and idx.dtype == np.int32
     assert (row[ch.ROW_IDX + 1:] == 0).all()
-
-
-def test_intersect_best_refuses_media():
-    jdata, jmeta = jsc.cornell_smoke()[0].compile()
-    data, meta = scene_from_numpy(_fields(jdata), _fields(jmeta))
-    ro = torch.zeros(4, 3)
-    with pytest.raises(NotImplementedError):
-        intersect_best(data, meta, quad_frames(data), ro, ro + 1.0,
-                       torch.zeros(4))

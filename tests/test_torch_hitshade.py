@@ -1,7 +1,9 @@
 """Port parity: finalize_and_shade on the same hit batch as the JAX package.
 
 Both sides get the same rays and the same closest-hit results (the JAX
-XLA intersector's), so the comparison isolates the shading arithmetic.
+XLA intersector's, media included), so the comparison isolates the shading
+arithmetic: materials, light sampling and the mixture pdf, media phase
+rows and fallback (image/noise) textures.
 """
 
 import dataclasses
@@ -98,14 +100,11 @@ def test_shade_matches_jax_three_spheres(three_sphere_scene):
     _compare(*_shade_both(jdata, jmeta, jcam))
 
 
-@pytest.mark.parametrize("idx", [3, 4, 6, 7])
-def test_shade_refuses_unported_features(idx):
-    """Image textures (3), noise (4), lights (6), media (7)."""
-    jdata, jmeta = jsc.build_scene(idx)[0].compile()
-    data, meta = scene_from_numpy(_fields(jdata), _fields(jmeta))
-    z = torch.zeros(2)
-    v = V3(z, z, z)
-    with pytest.raises(NotImplementedError):
-        finalize_and_shade(data, meta, quad_frames(data), None, None, v, v,
-                           z, z, z.int(), z.int(), SEED, z.long(), z.long(),
-                           0)
+@pytest.mark.parametrize("idx", [3, 4, 6, 7, 8])
+def test_shade_matches_jax_features(idx):
+    """Image textures (3), noise (4), lights with a two-way pick (6),
+    media (7) and all of them at once (8)."""
+    jworld, jcam = jsc.build_scene(idx)
+    jdata, jmeta = jworld.compile()
+    got, want = _shade_both(jdata, jmeta, jcam)
+    _compare(got, want)

@@ -111,6 +111,8 @@ def test_port_imports_without_jax():
         "import mort_tpu_torch.scene.scenes, mort_tpu_torch.render.vec\n"
         "import mort_tpu_torch.render.intersect\n"
         "import mort_tpu_torch.render.primtable\n"
+        "import mort_tpu_torch.render.textures\n"
+        "import mort_tpu_torch.render.shade\n"
         "import mort_tpu_torch.render.hitshade\n"
         "import mort_tpu_torch.render.closest_hit\n"
         "import mort_tpu_torch.render.wavefront\n"

@@ -104,12 +104,19 @@ def test_return_stats(three_sphere_scene):
 
 
 def test_unported_paths_raise(three_sphere_scene):
+    """Only the mesh-sharded path is unported; the kernel needs a card; an
+    unknown accel mode is refused.  Light sampling renders (Cornell box)."""
     data, meta, cam = _port(three_sphere_scene)
     with pytest.raises(NotImplementedError):
         render_wavefront(data, meta, cam, "cpu", mesh=object())
     with pytest.raises(ValueError):
         render_wavefront(data, meta, cam, "cpu", use_kernel=True)
+    with pytest.raises(ValueError):
+        render_wavefront(data, meta, cam, "cpu", accel="kdtree")
     w, c = tsc.cornell_box()                   # light sampling
     d6, m6 = w.compile()
-    with pytest.raises(NotImplementedError):
-        render_wavefront(d6, m6, c, "cpu")
+    img = render_wavefront(d6, m6, c.replace(image_width=16, image_height=16,
+                                             sqrt_spp=1, bounce_limit=4),
+                           "cpu")
+    assert img.shape == (16, 16, 3) and bool(torch.isfinite(img).all())
+    assert float(img.mean()) > 0.0
