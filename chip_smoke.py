@@ -13,8 +13,10 @@ Phases, one line each or more (any failure raises and exits non-zero):
    "cull") against its plain PyTorch version on the same card tensors, on
    four ray sets — scene 1 (2^18 camera rays and their bounces), scene 9
    (2^16, its default pool), a moving sphere/quad scene (2^18) and a
-   16,384-sphere spread scene (2^18) — t, kind, idx and rows bit-equal;
-   then every mode and the plain version timed with CUDA events on each set;
+   16,384-sphere spread scene (2^18) — t, kind, idx and rows bit-equal,
+   also from a launch that counts its sphere and quad tests (the
+   operation bound of each mode); then every mode and the plain version
+   timed with CUDA events on each set;
 5. main path, scene 1: ``render_wavefront`` at its bench config (1200x675,
    100 spp, depth 20, default pool/window/spt), launch counts reset just
    before and read just after; then, at a reduced config, the same render
@@ -28,13 +30,28 @@ Phases, one line each or more (any failure raises and exits non-zero):
    image rule;
 8. scenes 2-8 and 10 at the golden config (48 px, 4 spp, depth 8), kernel
    against plain by the image rule, each with kernel launches; the
-   16,384-sphere scene at a small config, where the auto policy runs "bvh".
+   16,384-sphere scene at a small config, where the auto policy runs "bvh";
+9. backward parity: the CUDA backward kernel (the gradient of the closest
+   hit) against its plain version on phase 4's four ray sets with random
+   cotangents — d_rays bit-equal, the atomically summed table gradients
+   within BWD_SUM_RTOL of the sum of |terms| per entry — and timed on
+   scene 1's rays at the train step's config (R = 202,800);
+10. main path, the train step: ``make_train_step`` on scene 1 at
+   ``bench.py --grad``'s config (600x338, 4 spp, depth 8), one warm-up step
+   and three timed ones, launch counts reset just before and read just
+   after (32 forward and 32 backward launches a step);
+11. the lockstep ``render`` of scene 1 (200x112, 16 spp, depth 20) through
+   the kernel, through the plain closest hit and against
+   ``render_wavefront``, by the image rule;
+12. the Cornell box train step (12x12, 4 spp, depth 6) on the card against
+   the same step on the CPU (the Function's plain versions), and the card's
+   ``intersect_best`` route.
 
 The line before the last is the nvidia-smi name/power line, the one before
 it a JSON record of the kernels (launches on the paths above, the largest
-|dt| against the plain version, kernel, plain and bound ms); the last line
-is a JSON object with ``ok`` and the device.  Imports neither jax nor the
-JAX package.
+error against the plain version, kernel, plain and bound ms); the last
+line is a JSON object with ``ok`` and the device.  Imports neither jax nor
+the JAX package.
 """
 
 from __future__ import annotations
@@ -51,14 +68,16 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from mort_tpu_torch import render_wavefront, require_cuda  # noqa: E402
+from mort_tpu_torch import (  # noqa: E402
+    make_train_step, render, render_wavefront, require_cuda,
+)
 from mort_tpu_torch import _build, rng  # noqa: E402
 from mort_tpu_torch.device import card_line  # noqa: E402
 from mort_tpu_torch.camera import derive_basis, get_rays_soa  # noqa: E402
 from mort_tpu_torch.render import closest_hit as ch  # noqa: E402
 from mort_tpu_torch.render.hitshade import finalize_and_shade  # noqa: E402
 from mort_tpu_torch.render.intersect import (  # noqa: E402
-    T_MIN, media_pass, quad_frames,
+    K_QUAD, K_SPHERE, T_MIN, media_pass, quad_frames,
 )
 from mort_tpu_torch.render.primtable import build_prim_table  # noqa: E402
 from mort_tpu_torch.render.vec import V3  # noqa: E402
@@ -76,6 +95,21 @@ FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 # three for the discriminant), a quad up to its t test (two dots, a
 # subtraction, a division)
 SPHERE_OPS, QUAD_OPS = 34, 12
+# float32 operations of the backward kernel per hit lane: a sphere lane
+# recomputes the ray terms (23) and half_b, c_term, the discriminant and the
+# root choice (38), forms the partials of t (20), the nine record terms (16)
+# and d_rays (33); a quad lane its t (13), the four record terms (10) and
+# d_rays (9)
+BWD_SPHERE_OPS, BWD_QUAD_OPS = 130, 32
+# The backward kernel's table gradients are float32 sums taken in atomic
+# order, which changes from run to run, against the plain version's
+# index_add_: they are held within BWD_SUM_RTOL of the sum of |terms| of
+# each entry (float32 summation of n terms in two orders differs by about
+# sqrt(n) * 6e-8 of that sum for random rounding; 2^17 terms on one
+# entry give ~2e-5).
+BWD_SUM_RTOL = 1e-4
+GRAD_W, GRAD_H = 600, 338   # bench.py --grad's train step config
+GRAD_SEEDS = (69420, 69421, 69422, 69423)   # warm-up, then three timed
 
 
 def log(msg):
@@ -205,30 +239,51 @@ def time_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def bound_ms(packed, R):
-    """The least time the card could take for one call: the larger of the
-    bytes the call must move (the [8, R] rays in, the [32, R] rows out,
-    every table once) over HBM bandwidth, and, for "none", the operations
-    every (ray, surface primitive) pair costs over the float32 peak.  For
-    "cull" and "bvh" the operations depend on the pruning and are not
-    counted: their bound here is the bytes alone."""
+def count_tests(name, packed, rays, want):
+    """The (sphere, quad) tests one launch of ``packed.accel`` performs, from
+    the kernel's optional counter; the counted launch must still equal the
+    plain version bit for bit.  In "none" every ray tests every surface
+    primitive."""
+    n = torch.zeros(2, dtype=torch.int64, device=rays.device)
+    got = ch._launch(packed, rays, T_MIN, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), f"{name}: the counted launch differs"
+    n_s, n_q = int(n[0]), int(n[1])
+    if packed.accel == "none":
+        R = rays.shape[1]
+        surf_s = int((packed.sph[:packed.n_sph, 9] != 0).sum())
+        surf_q = int((packed.quad[:packed.n_quad, 12] != 0).sum())
+        assert (n_s, n_q) == (R * surf_s, R * surf_q), \
+            f"{name}: counted {(n_s, n_q)} tests"
+    return n_s, n_q
+
+
+def bound_parts(packed, R, n_tests):
+    """(bytes bound, operations bound) of one call in ms: the bytes the
+    call must move (the [8, R] rays in, the [32, R] rows out, every table
+    once) over HBM bandwidth, and the operations of the (sphere, quad)
+    tests ``n_tests`` that the call performed (counted by the kernel) over
+    the float32 peak."""
     tabs = [packed.sph, packed.quad, packed.joined]
     if packed.accel_tab is not None:
         tabs.append(packed.accel_tab)
     n_bytes = R * (8 + ch.ROW_K) * 4 + sum(t.numel() * 4 for t in tabs)
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    if packed.accel != "none":
-        return t_bytes, "bytes"
-    n_sph = int((packed.sph[:packed.n_sph, 9] != 0).sum())
-    n_quad = int((packed.quad[:packed.n_quad, 12] != 0).sum())
-    t_ops = R * (n_sph * SPHERE_OPS + n_quad * QUAD_OPS) / FP32_OPS_PER_S \
-        * 1e3
+    n_s, n_q = n_tests
+    return (n_bytes / HBM_BYTES_PER_S * 1e3,
+            (n_s * SPHERE_OPS + n_q * QUAD_OPS) / FP32_OPS_PER_S * 1e3)
+
+
+def bound_ms(packed, R, n_tests):
+    """The least time the card could take for one call: the larger of the
+    two ``bound_parts``, and which it is."""
+    t_bytes, t_ops = bound_parts(packed, R, n_tests)
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
 def parity_and_timing(dev, card):
     """Phase 4.  Returns {mode: {"err", "ms", "plain_ms", "bound_ms",
-    "bound_by"}} at scene 9's shapes, and every set's times."""
+    "bound_by"}} at scene 9's shapes, and the four ray sets
+    {name: (scene, rays, plain output)}."""
     world1, cam1 = sc.random_spheres()
     world9, cam9 = sc.final_scene(400, 250, 4)
     world16, cam16 = sc.spread_spheres()
@@ -243,13 +298,17 @@ def parity_and_timing(dev, card):
                                               dev)),
     }
     err = dict.fromkeys(ch.ACCELS, 0.0)
-    times = {}
+    times, tests, out_sets = {}, {}, {}
     for name, (scene, (ro, rd, tme)) in sets.items():
         rays = ch.stack_rays(ro, rd, tme)
         want = ch.closest_hit_reference(scene.packed["none"], rays)
+        out_sets[name] = (scene, rays, want)
+        tests[name] = {}
         for mode in ch.ACCELS:
             err[mode] = max(err[mode], compare(
                 f"{name}/{mode}", scene.packed[mode], rays, want))
+            tests[name][mode] = count_tests(f"{name}/{mode}",
+                                            scene.packed[mode], rays, want)
         plain = time_ms(lambda: ch.closest_hit_reference(
             scene.packed["none"], rays), reps=3, warmup=1)
         row = {"plain": plain}
@@ -258,17 +317,230 @@ def parity_and_timing(dev, card):
                                                    T_MIN))
         times[name] = row
         R = rays.shape[1]
-        log(f"timing {name} R={R}: " + ", ".join(
-            f"{m} {row[m]:.4f} ms (bound {bound_ms(scene.packed[m], R)[0]:.4f}"
-            f" ms)" for m in ch.ACCELS) + f", plain {plain:.4f} ms | {card}")
+        parts = []
+        for m in ch.ACCELS:
+            t_bytes, t_ops = bound_parts(scene.packed[m], R, tests[name][m])
+            n_s, n_q = tests[name][m]
+            parts.append(f"{m} {row[m]:.4f} ms (operations bound "
+                         f"{t_ops:.4f} ms for {n_s / R:.1f} sphere + "
+                         f"{n_q / R:.1f} quad tests a ray, bytes bound "
+                         f"{t_bytes:.4f} ms)")
+        log(f"timing {name} R={R}: " + ", ".join(parts)
+            + f", plain {plain:.4f} ms | {card}")
     R = R_SCENE9
     out = {}
     for mode in ch.ACCELS:
-        b, by = bound_ms(s9.packed[mode], R)
+        b, by = bound_ms(s9.packed[mode], R, tests["scene9"][mode])
         out[mode] = {"err": err[mode], "ms": times["scene9"][mode],
                      "plain_ms": times["scene9"]["plain"], "bound_ms": b,
                      "bound_by": by}
-    return out, times
+    return out, out_sets
+
+
+def random_cotangents(R, dev, seed):
+    """dt [R] and drow [32, R] from numpy."""
+    g = np.random.RandomState(seed)
+    dt = torch.from_numpy(g.randn(R).astype(np.float32)).to(dev)
+    drow = torch.from_numpy(g.randn(ch.ROW_K, R).astype(np.float32)).to(dev)
+    return dt, drow
+
+
+def bwd_args(scene, rays, fwd, dt, drow):
+    p = scene.packed["none"]
+    return (rays, fwd[ch.ROW_KIND].to(torch.int32),
+            fwd[ch.ROW_IDX].to(torch.int32), dt, drow, p.sph, p.quad,
+            tuple(p.joined.shape), p.quad_base, T_MIN)
+
+
+def compare_bwd(name, args):
+    """The backward kernel against its plain version on the same card
+    tensors: d_rays bit-equal (each lane's value is the same rounded ops),
+    d_sph, d_quad and d_joined within BWD_SUM_RTOL of each entry's sum of
+    |terms|.  Returns (largest |difference|, largest |difference| / sum of
+    |terms|)."""
+    got = ch._launch_bwd(*args)
+    want = ch.closest_hit_bwd_reference(*args)
+    scale = ch.closest_hit_bwd_reference(*args, absolute=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]), f"{name}: d_rays differ"
+    err, rel = 0.0, 0.0
+    for what, g, w, s in zip(("d_sph", "d_quad", "d_joined"), got[1:],
+                             want[1:], scale[1:]):
+        diff = (g - w).abs()
+        if diff.numel():
+            err = max(err, float(diff.max()))
+            rel = max(rel, float((diff / s.clamp_min(1e-30)).max()))
+        bad = int((diff > BWD_SUM_RTOL * s).sum())
+        assert bad == 0, (f"{name}: {what} differs beyond {BWD_SUM_RTOL} of "
+                          f"the sum of |terms| at {bad} entries (largest "
+                          f"ratio {rel:.3e})")
+    return err, rel
+
+
+def bwd_bound_ms(args):
+    """The least time of one backward call: the larger of the bytes it must
+    move over HBM bandwidth, and its float32 operations per hit lane over
+    the float32 peak.  Every lane reads kind and writes its 8 rows of
+    d_rays; only a hit lane reads its 7 ray rows, idx, dt and the 28 rows
+    of drow it uses (a miss drops its cotangents).  The record tables are
+    read once and the three gradient tables written once."""
+    rays, kind, _idx, _dt, _drow, sph, quad, joined_shape = args[:8]
+    R = rays.shape[1]
+    n_join, k_join = joined_shape
+    n_sph_hits = int((kind == K_SPHERE).sum())
+    n_quad_hits = int((kind == K_QUAD).sum())
+    n_bytes = (4 * R * (1 + 8)
+               + 4 * (n_sph_hits + n_quad_hits) * (7 + 1 + 1 + (k_join + 1))
+               + 4 * 2 * (sph.numel() + quad.numel()) + 4 * n_join * k_join)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    n_ops = n_sph_hits * BWD_SPHERE_OPS + n_quad_hits * BWD_QUAD_OPS
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def backward_parity_and_timing(dev, card, sets):
+    """Phase 9.  Returns the closest_hit_bwd record at the train step's
+    shapes (scene 1, R = 202,800)."""
+    err = 0.0
+    for k, (name, (scene, rays, fwd)) in enumerate(sets.items()):
+        args = bwd_args(scene, rays, fwd, *random_cotangents(
+            rays.shape[1], dev, 10 + k))
+        e, rel = compare_bwd(f"{name}/bwd", args)
+        err = max(err, e)
+        log(f"bwd parity {name}: R={rays.shape[1]} "
+            f"hits={int((args[1] > 0).sum())} d_rays bit-equal; table sums "
+            f"max |diff| {e:.3e}, max |diff| / sum|terms| {rel:.3e} (limit "
+            f"{BWD_SUM_RTOL})")
+    # the train step's first bounce: every pixel's camera ray, sample 0
+    s1 = sets["scene1"][0]
+    _w, cam = sc.random_spheres()
+    cam = cam.replace(image_width=GRAD_W, image_height=GRAD_H, sqrt_spp=2,
+                      bounce_limit=8).to(dev)
+    R = GRAD_W * GRAD_H
+    pix = torch.arange(R, device=dev)
+    ro, rd, tme = get_rays_soa(cam, derive_basis(cam), SEED, pix,
+                               torch.zeros_like(pix))
+    rays = ch.stack_rays(ro, rd, tme)
+    fwd = ch._launch(s1.packed["none"], rays, T_MIN)
+    args = bwd_args(s1, rays, fwd, *random_cotangents(R, dev, 9))
+    e, rel = compare_bwd("scene1 grad/bwd", args)
+    err = max(err, e)
+    ms = time_ms(lambda: ch._launch_bwd(*args))
+    plain = time_ms(lambda: ch.closest_hit_bwd_reference(*args), reps=5,
+                    warmup=1)
+    b, by = bwd_bound_ms(args)
+    hits = int((args[1] > 0).sum())
+    ground = int((args[2][args[1] == K_SPHERE] == int(torch.argmax(
+        s1.data.sph_radius))).sum())
+    log(f"bwd timing scene1 grad R={R} ({hits} hits, {ground} on the ground "
+        f"sphere): kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} "
+        f"ms by {by} | {card}")
+    return {"err": err, "ms": ms, "plain_ms": plain, "bound_ms": b,
+            "bound_by": by}
+
+
+def step_grads_ok(loss, grads, need=()):
+    assert bool(torch.isfinite(loss)), f"loss {float(loss)}"
+    for k, g in grads.items():
+        assert bool(torch.isfinite(g).all()), f"non-finite grad {k}"
+    for k in need:
+        assert bool((grads[k] != 0).any()), f"zero grad {k}"
+
+
+def train_step_main_path(dev, card):
+    """Phase 10: the scene-1 train step at bench.py --grad's config."""
+    world, cam = sc.random_spheres()
+    data, meta = world.compile()
+    cam = cam.replace(image_width=GRAD_W, image_height=GRAD_H, sqrt_spp=2,
+                      bounce_limit=8)
+    steps_per_run = len(GRAD_SEEDS)
+    per_step = cam.sqrt_spp ** 2 * cam.bounce_limit
+    n_paths = GRAD_W * GRAD_H * cam.sqrt_spp ** 2
+    target = np.zeros((GRAD_H, GRAD_W, 3), np.float32)
+    step = make_train_step(meta)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    loss, grads = step(data, cam, target, GRAD_SEEDS[0])
+    float(loss)
+    walls = []
+    for seed in GRAD_SEEDS[1:]:
+        t0 = time.perf_counter()
+        loss, grads = step(data, cam, target, seed)
+        float(loss)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_grads_ok(loss, grads, ("sph_center", "mat_albedo", "tex_color"))
+    assert counts["none"] == steps_per_run * per_step, counts
+    assert counts["bwd"] == steps_per_run * per_step, counts
+    wall = statistics.median(walls)
+    log(f"main path train step scene1 {GRAD_W}x{GRAD_H} @ "
+        f"{cam.sqrt_spp ** 2}spp depth {cam.bounce_limit}: median wall "
+        f"{wall:.3f} s ({', '.join(f'{w:.3f}' for w in walls)}), "
+        f"{n_paths / wall:.1f} grad paths/s, loss {float(loss):.6f}, "
+        f"launches per step none {counts['none'] // steps_per_run} bwd "
+        f"{counts['bwd'] // steps_per_run} ({steps_per_run} steps), peak "
+        f"memory {peak / 2 ** 30:.3f} GiB | {card}")
+    return counts
+
+
+def lockstep_render(dev):
+    """Phase 11: the lockstep render of scene 1 on the card, through the
+    kernel and through the plain closest hit, and against the wavefront."""
+    world, cam = sc.random_spheres()
+    data, meta = world.compile()
+    cam = cam.replace(image_width=200, image_height=112, sqrt_spp=4,
+                      bounce_limit=20)
+    reset_counts()
+    a = render(data, meta, cam, seed=SEED)
+    counts = read_counts()
+    assert counts["none"] > 0, "the lockstep render launched no kernel"
+    b = render(data, meta, cam, seed=SEED, use_kernel=False)
+    c = render_wavefront(data, meta, cam, dev, seed=SEED)
+    a, b, c = (x.cpu().numpy() for x in (a, b, c))
+    assert np.isfinite(a).all(), "non-finite pixels"
+    fp, mp = assert_images_close(a, b)
+    fw, mw = assert_images_close(a, c)
+    log(f"lockstep render scene1 200x112 @ 16spp depth 20: kernel "
+        f"({counts['none']} launches) vs plain frac_within={fp:.5f}, "
+        f"mean_abs={mp:.3e}; vs render_wavefront frac_within={fw:.5f}, "
+        f"mean_abs={mw:.3e}")
+
+
+def train_step_card_vs_cpu(dev):
+    """Phase 12: the Cornell box step through the kernels on the card
+    against the same step through their plain versions on the CPU."""
+    world, cam = sc.cornell_box()
+    data, meta = world.compile()
+    cam = cam.replace(image_width=12, image_height=12, sqrt_spp=2,
+                      bounce_limit=6)
+    target = render(data, meta, cam, seed=SEED).cpu().numpy() * 0.9
+    reset_counts()
+    loss, grads = make_train_step(meta)(data, cam, target, SEED)
+    counts = read_counts()
+    assert counts["none"] > 0 and counts["bwd"] > 0, counts
+    c_loss, c_grads = make_train_step(meta, device="cpu", use_kernel=True)(
+        data, cam, target, SEED)
+    step_grads_ok(loss, grads)
+    scale = max(float(g.abs().max()) for g in c_grads.values())
+    worst = 0.0
+    for k, g in grads.items():
+        g, w = g.cpu(), c_grads[k]
+        # the two run the same ops, but CUDA's and the CPU's exp, log, sin
+        # and pow may differ in the last bit, and the CPU sums in another
+        # order: the tolerance of the port-vs-JAX gradient tests
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-5 * scale,
+                                   msg=lambda m, k=k: f"{k}: {m}")
+        worst = max(worst, float((g - w).abs().max()) / scale)
+    torch.testing.assert_close(loss.cpu(), c_loss, rtol=1e-4, atol=0.0)
+    x_loss, x_grads = make_train_step(meta, use_kernel=False)(
+        data, cam, target, SEED)
+    step_grads_ok(x_loss, x_grads)
+    log(f"train step cornell 12x12 @ 4spp depth 6: card loss "
+        f"{float(loss):.7f} vs CPU {float(c_loss):.7f}; grads max |diff| / "
+        f"max|g| {worst:.3e}; card intersect_best route loss "
+        f"{float(x_loss):.7f}, grads finite")
 
 
 def render_pair(data, meta, cam, dev):
@@ -341,7 +613,7 @@ def main():
     log(f"philox: pinned vector reproduced bit for bit on {dev}")
 
     # ---- 4. every mode vs the plain version, and timings ----
-    kern, _ = parity_and_timing(dev, card)
+    kern, sets = parity_and_timing(dev, card)
     log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 5. main path: scene 1 at its bench config ----
@@ -405,25 +677,45 @@ def main():
         f"({counts16['bvh']} launches) vs plain frac_within={frac:.5f}, "
         f"mean_abs={mdiff:.3e}")
 
+    # ---- 9. the backward kernel vs its plain version, and timings ----
+    kern["bwd"] = backward_parity_and_timing(dev, card, sets)
+    del sets
+    log(f"phase 9 done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 10. main path: the scene-1 train step ----
+    counts10 = train_step_main_path(dev, card)
+    log(f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 11. the lockstep render on the card ----
+    lockstep_render(dev)
+
+    # ---- 12. the Cornell train step, card against CPU ----
+    train_step_card_vs_cpu(dev)
+
     launches = {"none": counts9["none"],
                 "bvh": four_counts["bvh"] + counts16["bvh"],
-                "cull": four_counts["cull"]}
+                "cull": four_counts["cull"], "bwd": counts10["bwd"]}
     log(f"launches: none {counts9['none']} (scene 9 main path; scene 1 main "
         f"path {counts1['none']}), bvh {launches['bvh']} (scene 9 four-way "
         f"{four_counts['bvh']} + spread16k {counts16['bvh']}), cull "
-        f"{launches['cull']} (scene 9 four-way)")
+        f"{launches['cull']} (scene 9 four-way), bwd {launches['bwd']} "
+        f"(the train step main path, {len(GRAD_SEEDS)} steps)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     names = {"none": "closest_hit", "bvh": "closest_hit_bvh",
-             "cull": "closest_hit_cull"}
+             "cull": "closest_hit_cull", "bwd": "closest_hit_bwd"}
+    replaces = dict.fromkeys(ch.ACCELS,
+                             "mort_tpu/render/pallas_intersect.py:1215")
+    replaces["bwd"] = "mort_tpu/render/pallas_intersect.py:1305"
+    shapes = dict.fromkeys(ch.ACCELS, f"scene9 R={R_SCENE9}")
+    shapes["bwd"] = f"scene1 grad R={GRAD_W * GRAD_H}"
     log(json.dumps({"kernels": [{
-        "name": names[mode], "route": "cuda",
+        "name": names[k], "route": "cuda",
         "source": "mort_tpu_torch/csrc/closest_hit.cu",
-        "replaces": "mort_tpu/render/pallas_intersect.py:1215",
-        "launches": launches[mode], "max_abs_err": kern[mode]["err"],
-        "ms": kern[mode]["ms"], "plain_ms": kern[mode]["plain_ms"],
-        "bound_ms": kern[mode]["bound_ms"],
-        "bound_by": kern[mode]["bound_by"], "library_ms": None,
-        "shape": f"scene9 R={R_SCENE9}"} for mode in ch.ACCELS]}))
+        "replaces": replaces[k], "launches": launches[k],
+        "max_abs_err": kern[k]["err"], "ms": kern[k]["ms"],
+        "plain_ms": kern[k]["plain_ms"], "bound_ms": kern[k]["bound_ms"],
+        "bound_by": kern[k]["bound_by"], "library_ms": None,
+        "shape": shapes[k]} for k in ch.ACCELS + ("bwd",)]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

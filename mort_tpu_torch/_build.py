@@ -33,7 +33,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "closest_hit": {
         "mort_closest_hit": (_I, (_P, _I, _P, _I, _P, _I, _P, _I, _I, _F,
-                                  _I, _P, _I, _I, _P, _P)),
+                                  _I, _P, _I, _I, _P, _P, _P)),
+        "mort_closest_hit_bwd": (_I, (_P, _I, _P, _P, _P, _P, _P, _P, _I,
+                                      _I, _F, _P, _P, _P, _P, _P)),
         "mort_cuda_error_string": (ctypes.c_char_p, (_I,)),
     },
 }

@@ -43,11 +43,23 @@ plain version of all three.  ``auto_accel`` is the JAX package's policy.
 Dispatch: a CUDA tensor always launches the kernel of the packed mode (a
 failure raises; no mode falls back to another); a CPU tensor takes the
 plain version whatever the mode.  ``launch_count[mode]`` counts launches.
+
+Gradient (the port of ``_closest_hit_vjp`` and ``_t_winner``): the winner
+(kind, idx) is a detached discrete choice, as in the JAX package; given
+it, t is an analytic function of the ray and the winner's record, and the
+row a gather of the joined table.  Where an operand needs a gradient,
+``closest_hit`` runs through the autograd Function ``_ClosestHit``, whose
+backward launches the CUDA kernel
+``closest_hit_bwd`` on a CUDA tensor (``launch_count["bwd"]``) and takes
+``closest_hit_bwd_reference`` on a CPU tensor.  It does not depend on the
+accel mode: every mode gives the same winner.  The cull boxes and the bvh
+tree are built detached (a traversal decision has no gradient).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -79,8 +91,9 @@ BVH_MIN_PRIMS = 8192
 ACCELS = ("none", "cull", "bvh")
 _MODE = {"none": 0, "cull": 1, "bvh": 2}
 
-# Kernel launches per mode since import (or since a caller reset them).
-launch_count = dict.fromkeys(ACCELS, 0)
+# Kernel launches per forward mode and of the backward ("bwd") since import
+# (or since a caller reset them).
+launch_count = dict.fromkeys(ACCELS + ("bwd",), 0)
 
 
 def auto_accel(n_prims: int) -> str:
@@ -202,11 +215,14 @@ def pack_scene(data: SceneData, meta: SceneMeta, qf: QuadFrames,
     ], dim=1).contiguous()
     accel_tab, n_accel = None, 0
     if accel != "none":
-        accel_tab = cluster_boxes(data, meta)
-        n_accel = accel_tab.shape[0]
-        if accel == "bvh":
-            accel_tab = cluster_tree(accel_tab)
-            n_accel = accel_tab.shape[0] // 2
+        # traversal decisions are not differentiable (the JAX package's
+        # stop_gradient on its boxes and tree)
+        with torch.no_grad():
+            accel_tab = cluster_boxes(data, meta)
+            n_accel = accel_tab.shape[0]
+            if accel == "bvh":
+                accel_tab = cluster_tree(accel_tab)
+                n_accel = accel_tab.shape[0] // 2
     return PackedScene(sph=sph, n_sph=int(meta.n_spheres), quad=quad,
                        n_quad=int(meta.n_quads),
                        joined=table.contiguous(),
@@ -304,7 +320,12 @@ def _check(name, x, dtype, device, ndim, cols=None):
             f"(contiguous={x.is_contiguous()})")
 
 
-def _launch(packed: PackedScene, rays: torch.Tensor, t_min: float):
+def _launch(packed: PackedScene, rays: torch.Tensor, t_min: float,
+            n_tests: torch.Tensor | None = None):
+    """Launch the forward kernel of ``packed.accel``; returns the [32, R]
+    output.  ``n_tests``: an optional int64 [2] card tensor to which the
+    launch adds the sphere and quad tests it performs (rows whose surface
+    flag is 0 are not tests); the results do not depend on it."""
     from .._build import load_library
 
     dev = rays.device
@@ -335,6 +356,12 @@ def _launch(packed: PackedScene, rays: torch.Tensor, t_min: float):
                 or (n_leaves - n_ss) * CL < packed.n_quad):
             raise ValueError("closest_hit: inconsistent accel table")
         accel_ptr = tab.data_ptr()
+    count_ptr = 0
+    if n_tests is not None:
+        _check("n_tests", n_tests, torch.int64, dev, 1)
+        if n_tests.shape[0] != 2:
+            raise ValueError("closest_hit: n_tests must be int64 [2]")
+        count_ptr = n_tests.data_ptr()
     R = rays.shape[1]
     if R >= 2 ** 31 // ROW_K:
         raise ValueError(f"closest_hit: {R} rays exceed the int32 range")
@@ -348,7 +375,8 @@ def _launch(packed: PackedScene, rays: torch.Tensor, t_min: float):
             packed.quad.data_ptr(), packed.n_quad,
             packed.joined.data_ptr(), k_join, packed.quad_base,
             ctypes.c_float(t_min), _MODE[accel], accel_ptr,
-            packed.n_sph_sub, packed.n_accel, out.data_ptr(), stream)
+            packed.n_sph_sub, packed.n_accel, out.data_ptr(), count_ptr,
+            stream)
     if rc != 0:
         raise RuntimeError(
             f"closest_hit kernel launch failed ({accel}): CUDA error {rc} "
@@ -357,19 +385,220 @@ def _launch(packed: PackedScene, rays: torch.Tensor, t_min: float):
     return out
 
 
+def closest_hit_bwd_reference(rays, kind, idx, dt, drow, sph, quad,
+                              joined_shape, quad_base, t_min=T_MIN,
+                              absolute=False):
+    """The plain PyTorch version of the backward kernel: the vector-Jacobian
+    product of (t, row) for the detached winner, as the JAX package's
+    ``_closest_hit_vjp`` bwd with ``_t_winner``'s guards.
+
+    ``rays`` [8, R], ``kind``/``idx`` int32 [R] (the forward's winner),
+    cotangents ``dt`` [R] and ``drow`` [32, R]; ``sph`` [Ns, 10] and
+    ``quad`` [Nq, 13] the records the forward scanned.  Returns
+    (d_rays [8, R], d_sph, d_quad, d_joined of ``joined_shape``).
+
+    The row's t output aliases t, so its cotangent folds in (rows 28-31
+    carry none); miss lanes contribute nothing (the forward read joined row
+    0 for them).  The root (near or far) is chosen again with the forward's
+    exact rounding (the ops of ``closest_hit_reference``); then, with
+    root = -half_b -+ sqrt(disc) and t = root / a,
+
+        sphere: the partials of t through half_b, c_term and a = |rd|^2
+                into the record columns c, cv, c.c-r^2, 2c.cv, |cv|^2 and
+                the ray;
+        quad:   t = (D - n.o) / (n.d): dD = 1/den, dn = -(o + t d)/den,
+                do = -n/den, dd = -t n/den.
+
+    ``a`` is guarded to 1 where it is 0 and ``disc`` clamped at 1e-30, so a
+    lane's cotangent is never NaN x 0.
+
+    ``absolute=True`` sums |term| instead of each term into d_sph, d_quad and
+    d_joined: the scale against which a sum taken in another order (the
+    kernel's atomics) is held."""
+    mag = torch.abs if absolute else (lambda x: x)
+    dev = rays.device
+    hit = kind != K_NONE
+    dte = torch.where(hit, dt + drow[ROW_T], 0.0)
+    d_rays = torch.zeros_like(rays)
+    d_sph = torch.zeros_like(sph)
+    d_quad = torch.zeros_like(quad)
+    d_joined = torch.zeros(joined_shape, dtype=torch.float32, device=dev)
+    k_join = joined_shape[1]
+    lanes = hit.nonzero().squeeze(1)
+    g = torch.where(kind == K_QUAD, idx + quad_base, idx).long()
+    d_joined.index_add_(0, g[lanes], mag(drow[:k_join, lanes].T))
+
+    s = (kind == K_SPHERE).nonzero().squeeze(1)
+    if s.numel():
+        j = idx[s].long()
+        cx, cy, cz, vx, vy, vz, ctc_r2, ccv2, vv, _ = sph[j].unbind(1)
+        ox, oy, oz, dx, dy, dz, tm = (rays[k][s] for k in range(7))
+        # the forward's ops, in its order (closest_hit_reference)
+        a = _dot3(dx, dy, dz, dx, dy, dz)
+        ro_rd = _dot3(ox, oy, oz, dx, dy, dz)
+        ro_sq = _dot3(ox, oy, oz, ox, oy, oz)
+        half_b = ((ro_rd - _dot3(dx, dy, dz, cx, cy, cz))
+                  - _dot3(tm * dx, tm * dy, tm * dz, vx, vy, vz))
+        c_term = (((((ro_sq - 2.0 * _dot3(ox, oy, oz, cx, cy, cz))
+                     - 2.0 * _dot3(tm * ox, tm * oy, tm * oz, vx, vy, vz))
+                    + ctc_r2) + tm * ccv2) + (tm * tm) * vv)
+        disc = half_b * half_b - a * c_term
+        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        root1 = -half_b - sq
+        far = ~(root1 > a * t_min)
+        root = torch.where(far, root1 + 2.0 * sq, root1)
+        # d root / d(half_b, c_term, a), then t = root / a
+        sgn = torch.where(far, 1.0, -1.0)
+        live = disc > 1e-30
+        sq_g = torch.sqrt(torch.clamp(disc, min=1e-30))
+        a_ok = a > 0.0
+        a_g = torch.where(a_ok, a, 1.0)
+        G = dte[s] / a_g
+        g_hb = G * (torch.where(live, sgn * half_b / sq_g, 0.0) - 1.0)
+        g_ct = G * torch.where(live, -sgn * a_g / (2.0 * sq_g), 0.0)
+        g_a = torch.where(
+            a_ok, G * torch.where(live, -sgn * c_term / (2.0 * sq_g), 0.0)
+            - G * root / a_g, 0.0)
+        # half_b = o.d - c.d - tm cv.d
+        # c_term = |o|^2 - 2 c.o - 2 tm cv.o + (c.c-r^2) + tm 2c.cv
+        #          + tm^2 |cv|^2
+        dcx = -g_hb * dx - 2.0 * g_ct * ox
+        dcy = -g_hb * dy - 2.0 * g_ct * oy
+        dcz = -g_hb * dz - 2.0 * g_ct * oz
+        zero = torch.zeros_like(G)
+        d_sph.index_add_(0, j, mag(torch.stack([
+            dcx, dcy, dcz, tm * dcx, tm * dcy, tm * dcz,
+            g_ct, g_ct * tm, g_ct * tm * tm, zero], dim=1)))
+        ex, ey, ez = ox - cx - tm * vx, oy - cy - tm * vy, oz - cz - tm * vz
+        d_rays[:7, s] = torch.stack([
+            g_hb * dx + 2.0 * g_ct * ex,
+            g_hb * dy + 2.0 * g_ct * ey,
+            g_hb * dz + 2.0 * g_ct * ez,
+            g_hb * ex + 2.0 * g_a * dx,
+            g_hb * ey + 2.0 * g_a * dy,
+            g_hb * ez + 2.0 * g_a * dz,
+            -g_hb * _dot3(vx, vy, vz, dx, dy, dz)
+            + g_ct * (ccv2 + 2.0 * tm * vv
+                      - 2.0 * _dot3(vx, vy, vz, ox, oy, oz))])
+
+    q = (kind == K_QUAD).nonzero().squeeze(1)
+    if q.numel():
+        j = idx[q].long()
+        nx, ny, nz, D = quad[j, :4].unbind(1)
+        ox, oy, oz, dx, dy, dz = (rays[k][q] for k in range(6))
+        den = _dot3(nx, ny, nz, dx, dy, dz)
+        den_g = torch.where(torch.abs(den) >= 1e-8, den, 1.0)
+        t = (D - _dot3(nx, ny, nz, ox, oy, oz)) / den_g
+        G = dte[q] / den_g
+        zero = torch.zeros_like(G)
+        d_quad.index_add_(0, j, mag(torch.stack(
+            [-G * (ox + t * dx), -G * (oy + t * dy), -G * (oz + t * dz), G]
+            + [zero] * (QUAD_COLS - 4), dim=1)))
+        d_rays[:6, q] = torch.stack([-G * nx, -G * ny, -G * nz,
+                                     -G * t * nx, -G * t * ny, -G * t * nz])
+    return d_rays, d_sph, d_quad, d_joined
+
+
+def _launch_bwd(rays, kind, idx, dt, drow, sph, quad, joined_shape,
+                quad_base, t_min):
+    """Launch the backward kernel (its plain version is
+    ``closest_hit_bwd_reference``); the gradient buffers are allocated
+    zeroed here and the kernel adds into them with atomics."""
+    from .._build import load_library
+
+    dev = rays.device
+    _check("rays", rays, torch.float32, dev, 2)
+    R = rays.shape[1]
+    if rays.shape[0] != 8 or R >= 2 ** 31 // ROW_K:
+        raise ValueError(f"closest_hit_bwd: rays must be [8, R < 2^26], got "
+                         f"{tuple(rays.shape)}")
+    for name, x, dtype in (("kind", kind, torch.int32),
+                           ("idx", idx, torch.int32),
+                           ("dt", dt, torch.float32)):
+        _check(name, x, dtype, dev, 1)
+        if x.shape[0] != R:
+            raise ValueError(f"closest_hit_bwd: {name} must have {R} lanes")
+    _check("drow", drow, torch.float32, dev, 2)
+    if tuple(drow.shape) != (ROW_K, R):
+        raise ValueError(f"closest_hit_bwd: drow must be [{ROW_K}, {R}]")
+    _check("sph", sph, torch.float32, dev, 2, SPH_COLS)
+    _check("quad", quad, torch.float32, dev, 2, QUAD_COLS)
+    n_join, k_join = joined_shape
+    if k_join > ROW_T or quad_base + quad.shape[0] > n_join:
+        raise ValueError("closest_hit_bwd: inconsistent table shapes")
+    d_rays = torch.empty_like(rays)
+    d_sph = torch.zeros_like(sph)
+    d_quad = torch.zeros_like(quad)
+    d_joined = torch.zeros(joined_shape, dtype=torch.float32, device=dev)
+    lib = load_library("closest_hit")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.mort_closest_hit_bwd(
+            rays.data_ptr(), R, kind.data_ptr(), idx.data_ptr(),
+            dt.data_ptr(), drow.data_ptr(), sph.data_ptr(), quad.data_ptr(),
+            k_join, quad_base, ctypes.c_float(t_min), d_rays.data_ptr(),
+            d_sph.data_ptr(), d_quad.data_ptr(), d_joined.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"closest_hit_bwd kernel launch failed: CUDA error {rc} "
+            f"({lib.mort_cuda_error_string(rc).decode()})")
+    launch_count["bwd"] += 1
+    return d_rays, d_sph, d_quad, d_joined
+
+
+class _ClosestHit(torch.autograd.Function):
+    """The closest hit with a gradient (the JAX package's custom VJP): the
+    ray stack and the three record tables are inputs, so gradients reach
+    ``pack_scene`` and ``build_prim_table``; ``packed`` supplies only the
+    static fields (counts, quad_base, accel mode and its detached table)."""
+
+    @staticmethod
+    def forward(ctx, rays, sph, quad, joined, packed, t_min):
+        p = dataclasses.replace(packed, sph=sph, quad=quad, joined=joined)
+        row = _forward_row(p, rays, t_min)
+        t = row[ROW_T].clone()
+        kind = row[ROW_KIND].to(torch.int32)
+        idx = row[ROW_IDX].to(torch.int32)
+        ctx.mark_non_differentiable(kind, idx)
+        ctx.save_for_backward(rays, sph, quad, kind, idx)
+        ctx.static = (tuple(joined.shape), packed.quad_base, t_min)
+        return t, kind, idx, row
+
+    @staticmethod
+    def backward(ctx, dt, _dkind, _didx, drow):
+        rays, sph, quad, kind, idx = ctx.saved_tensors
+        joined_shape, quad_base, t_min = ctx.static
+        bwd = (_launch_bwd if rays.device.type == "cuda"
+               else closest_hit_bwd_reference)
+        d_rays, d_sph, d_quad, d_joined = bwd(
+            rays, kind, idx, dt.contiguous(), drow.contiguous(), sph, quad,
+            joined_shape, quad_base, t_min)
+        return d_rays, d_sph, d_quad, d_joined, None, None
+
+
 def closest_hit(packed: PackedScene, ro: V3, rd: V3, time: torch.Tensor,
                 t_min: float = T_MIN):
     """Closest hit of R rays: (t [R] with +inf misses, kind int32 [R],
     idx int32 [R], row_t [32, R]).  CUDA tensors launch the kernel of
-    ``packed.accel``; CPU tensors take ``closest_hit_reference``."""
+    ``packed.accel``; CPU tensors take ``closest_hit_reference``.
+    Differentiable in the rays and in ``packed``'s sph, quad and joined
+    tables: where one of them needs a gradient the call goes through
+    ``_ClosestHit``, otherwise (a forward render) straight to the kernel."""
     rays = stack_rays(ro, rd, time)
+    operands = (rays, packed.sph, packed.quad, packed.joined)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in operands):
+        return _ClosestHit.apply(*operands, packed, t_min)
+    return split_row(_forward_row(packed, rays, t_min))
+
+
+def _forward_row(packed: PackedScene, rays: torch.Tensor, t_min: float):
+    """The [32, R] output: the kernel on a CUDA tensor, its plain version on
+    a CPU tensor."""
     if rays.device.type == "cuda":
-        row = _launch(packed, rays, t_min)
-    elif rays.device.type == "cpu":
-        row = closest_hit_reference(packed, rays, t_min)
-    else:
-        raise ValueError(f"closest_hit: unsupported device {rays.device}")
-    return split_row(row)
+        return _launch(packed, rays, t_min)
+    if rays.device.type == "cpu":
+        return closest_hit_reference(packed, rays, t_min)
+    raise ValueError(f"closest_hit: unsupported device {rays.device}")
 
 
 def split_row(row: torch.Tensor):

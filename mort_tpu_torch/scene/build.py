@@ -93,6 +93,10 @@ class SceneData:
     # Constant media.
     med_neg_inv_density: torch.Tensor  # [Nm]
 
+    def replace(self, **kw) -> "SceneData":
+        """A copy with the given fields replaced."""
+        return dataclasses.replace(self, **kw)
+
     def to(self, device) -> "SceneData":
         """A copy with every tensor on ``device``."""
         out = {}

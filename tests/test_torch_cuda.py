@@ -170,3 +170,59 @@ def test_render_modes_vs_plain_scene9(dev, accel):
     b = render_wavefront(data, meta, cam, dev, seed=9, use_kernel=False)
     np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=1e-4,
                                atol=1e-5)
+
+
+def _bwd_args(packed, n, dev, seed=5):
+    ro, rd, tme = _rand_rays(n, dev)
+    rays = ch.stack_rays(ro, rd, tme)
+    row = ch._launch(packed, rays, 1e-3)
+    g = np.random.RandomState(seed)
+    dt = torch.from_numpy(g.randn(n).astype(np.float32)).to(dev)
+    drow = torch.from_numpy(g.randn(ch.ROW_K, n).astype(np.float32)).to(dev)
+    return (rays, row[ch.ROW_KIND].to(torch.int32),
+            row[ch.ROW_IDX].to(torch.int32), dt, drow, packed.sph,
+            packed.quad, tuple(packed.joined.shape), packed.quad_base, 1e-3)
+
+
+def test_backward_kernel_equals_plain(dev):
+    """d_rays bit-equal (every lane's value is the plain version's rounded
+    ops in its order); the table gradients are sums in atomic order, which
+    changes from run to run: within 1e-4 of each entry's sum of |terms|."""
+    args = _bwd_args(_packed(_mixed_world(), dev), 4096, dev)
+    before = ch.launch_count["bwd"]
+    got = ch._launch_bwd(*args)
+    torch.cuda.synchronize()
+    assert ch.launch_count["bwd"] == before + 1
+    want = ch.closest_hit_bwd_reference(*args)
+    scale = ch.closest_hit_bwd_reference(*args, absolute=True)
+    assert torch.equal(got[0], want[0])
+    assert bool((got[1] != 0).any()) and bool((got[3] != 0).any())
+    for g, w, s in zip(got[1:], want[1:], scale[1:]):
+        assert bool(((g - w).abs() <= 1e-4 * s).all())
+
+
+def test_train_step_card_vs_cpu(dev):
+    """A 16x16 Cornell box train step through the kernels on the card
+    against the same step through their plain versions on the CPU."""
+    from mort_tpu_torch import make_train_step, render
+
+    world, cam = sc.cornell_box()
+    data, meta = world.compile()
+    cam = cam.replace(image_width=16, image_height=16, sqrt_spp=2,
+                      bounce_limit=6)
+    target = render(data, meta, cam, seed=3).cpu().numpy() * 0.9
+    before = dict(ch.launch_count)
+    loss, grads = make_train_step(meta)(data, cam, target, 7)
+    torch.cuda.synchronize()
+    assert ch.launch_count["none"] == before["none"] + 4 * 6
+    assert ch.launch_count["bwd"] == before["bwd"] + 4 * 6
+    c_loss, c_grads = make_train_step(meta, device="cpu", use_kernel=True)(
+        data, cam, target, 7)
+    torch.testing.assert_close(loss.cpu(), c_loss, rtol=1e-4, atol=0.0)
+    scale = max(float(g.abs().max()) for g in c_grads.values())
+    for k, g in grads.items():
+        assert bool(torch.isfinite(g).all()), k
+        # CUDA's and the CPU's exp, log, sin and pow may differ in the last
+        # bit, and the sums run in another order
+        torch.testing.assert_close(g.cpu(), c_grads[k], rtol=1e-3,
+                                   atol=1e-5 * scale)
