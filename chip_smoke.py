@@ -7,16 +7,22 @@ Phases, one line each or more (any failure raises and exits non-zero):
 
 1. card: the device, its name and power limit (nvidia-smi), versions;
 2. build: nvcc-compiles csrc/closest_hit.cu (or loads it from the build
-   cache) and reports the seconds;
+   cache) and reports the seconds, each kernel's registers, spills and
+   shared memory (``-Xptxas -v``) and the static SASS instruction mix of
+   the "none" kernels (``cuobjdump -sass``);
 3. philox: the pinned Philox vector of tests/test_rng.py, on the card;
 4. parity: the CUDA closest-hit kernel in each accel mode ("none", "bvh",
    "cull") against its plain PyTorch version on the same card tensors, on
-   four ray sets — scene 1 (2^18 camera rays and their bounces), scene 9
-   (2^16, its default pool), a moving sphere/quad scene (2^18) and a
-   16,384-sphere spread scene (2^18) — t, kind, idx and rows bit-equal,
-   also from a launch that counts its sphere and quad tests (the
-   operation bound of each mode); then every mode and the plain version
-   timed with CUDA events on each set;
+   five ray sets — scene 1 (2^18 camera rays and their bounces), scene 9
+   (2^16, its default pool), scene9_edges (2^16 rays aimed at scene 9's
+   box edges and corners, from its camera, from far away, from box faces
+   and from inside boxes, some with a direction component under 1e-8), a
+   moving sphere/quad scene (2^18) and a 16,384-sphere spread scene
+   (2^18) — t, kind, idx and rows bit-equal, also from a launch that
+   counts its sphere, quad and box slab tests; then every mode and the
+   plain version timed with CUDA events on each set, one call between two
+   events and ten calls back to back, and the share of "none"'s time that
+   scene 7's quads take;
 5. main path, scene 1: ``render_wavefront`` at its bench config (1200x675,
    100 spp, depth 20, default pool/window/spt), launch counts reset just
    before and read just after; then, at a reduced config, the same render
@@ -49,15 +55,18 @@ Phases, one line each or more (any failure raises and exits non-zero):
 
 The line before the last is the nvidia-smi name/power line, the one before
 it a JSON record of the kernels (launches on the paths above, the largest
-error against the plain version, kernel, plain and bound ms); the last
+error against the plain version, kernel ms — one call between two events,
+and back to back — plain and bound ms); the last
 line is a JSON object with ``ok`` and the device.  Imports neither jax nor
 the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -95,6 +104,15 @@ FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 # three for the discriminant), a quad up to its t test (two dots, a
 # subtraction, a division)
 SPHERE_OPS, QUAD_OPS = 34, 12
+# float32 operations of one box slab test of "none" (box_admits and
+# slab_enters): the bound (2), the slack (2), the widened box (6), the
+# inverted-box check (1), six subtractions and six multiplies, ten min/max
+# and three comparisons
+SLAB_OPS = 36
+R_EDGES = 1 << 16           # rays of the scene9_edges set
+# device clock cycles (~2.5 ms) that time_ms's sleep holds the card before
+# calls timed back to back, longer than the host takes to queue them
+SLEEP_CYCLES = 5_000_000
 # float32 operations of the backward kernel per hit lane: a sphere lane
 # recomputes the ray terms (23) and half_b, c_term, the discriminant and the
 # root choice (38), forms the partials of t (20), the nine record terms (16)
@@ -126,6 +144,81 @@ def assert_images_close(got, want, frac_ok=0.98, atol=2e-2, mean_tol=4e-3):
         f"images differ: frac_within={frac:.4f} (need {frac_ok}), "
         f"mean_abs={mean:.6f} (need {mean_tol}); max={diff.max():.4f}")
     return frac, mean
+
+
+def kernel_label(mangled):
+    """closest_hit_none_kernel<false, 2> from its mangled name."""
+    m = re.search(r"closest_hit_(?:none_|cull_|bvh_|bwd_)?kernel", mangled)
+    if m is None:
+        return mangled
+    rest = mangled[m.end():]
+    targs = rest[:rest.find("EEv") + 2] if rest.startswith("I") else ""
+    args = re.findall(r"L([bi])(\d+)E", targs)
+    vals = [("false", "true")[int(v)] if t == "b" else v for t, v in args]
+    return m.group(0) + (f"<{', '.join(vals)}>" if vals else "")
+
+
+def ptxas_report(name):
+    """One line per kernel of ``name`` from its -Xptxas -v report:
+    registers, spills and shared memory."""
+    lines, cur = [], None
+    for line in _build.build_log(name).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = kernel_label(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur:
+            spills = f"spills {m.group(1)}/{m.group(2)} B"
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if m and cur:
+            lines.append(f"{cur}: {m.group(1)} registers, {spills}, "
+                         f"{m.group(2)} B shared")
+            cur = None
+    return lines
+
+
+SASS_CLASSES = ("LDS", "LDG", "STG", "FADD", "FMUL", "FFMA", "MUFU", "FSETP",
+                "FMNMX", "SHFL", "LDGSTS", "BAR")
+
+
+def sass_mix(name, kernel="closest_hit_none_kernel<false"):
+    """{(kernel, part): {opcode class: count}}: the static SASS instruction
+    mix of the kernels of ``name`` whose label starts with ``kernel``
+    (``cuobjdump -sass`` on the built library), for the whole kernel (part
+    "all") and for each innermost loop that does float arithmetic (part
+    "loop 0x<first>-0x<last>": the instructions from a backward branch's
+    target to the branch, where no other such loop lies inside).
+    Instructions predicated off for good (``@!PT``) are not counted."""
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()),
+                             "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass",
+                           str(_build.library_path(name))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    mix = {}
+    for block in text.split("Function : ")[1:]:
+        label = kernel_label(block.split(None, 1)[0])
+        if not label.startswith(kernel):
+            continue
+        ins = [(int(a, 16), op, rest) for a, pred, op, rest in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z0-9]+)([^;]*);",
+            block) if pred.strip() != "@!PT"]
+        loops = [(int(m.group(1), 16), a) for a, op, rest in ins
+                 if op == "BRA" and (m := re.search(r"0x([0-9a-f]+)", rest))
+                 and int(m.group(1), 16) < a]
+        parts = {"all": (0, ins[-1][0] if ins else 0)}
+        for lo, hi in loops:
+            if not any((o_lo, o_hi) != (lo, hi) and lo <= o_lo
+                       and o_hi <= hi for o_lo, o_hi in loops):
+                parts[f"loop {lo:#x}-{hi:#x}"] = (lo, hi)
+        for part, (lo, hi) in parts.items():
+            ops = [op for a, op, _ in ins if lo <= a <= hi]
+            counts = {c: sum(op == c for op in ops) for c in SASS_CLASSES}
+            counts["total"] = len(ops)
+            if part == "all" or counts["FADD"] + counts["FMUL"]:
+                mix[label, part] = counts
+    return mix
 
 
 def reset_counts():
@@ -222,8 +315,13 @@ def compare(name, packed, rays, want):
     return err
 
 
-def time_ms(fn, reps=20, warmup=3):
-    """Median ms per call, CUDA events around each call."""
+def time_ms(fn, reps=20, warmup=3, calls=1):
+    """Median over ``reps`` samples of the ms per call.  With ``calls`` = 1,
+    CUDA events around one call (the ``ms`` of the kernels line), which
+    also counts the host's Python and launch time where it exceeds the
+    kernel's; with more, CUDA events around ``calls`` calls queued behind a
+    device-side sleep, so that the card runs them back to back: the kernel
+    alone."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -231,46 +329,67 @@ def time_ms(fn, reps=20, warmup=3):
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if calls > 1:
+            torch.cuda._sleep(SLEEP_CYCLES)
         a.record()
-        fn()
+        for _ in range(calls):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
 
 
+def surface_counts(packed):
+    """(surface spheres, surface quads) of a packed scene."""
+    return (int((packed.sph[:packed.n_sph, 9] != 0).sum()),
+            int((packed.quad[:packed.n_quad, 12] != 0).sum()))
+
+
 def count_tests(name, packed, rays, want):
-    """The (sphere, quad) tests one launch of ``packed.accel`` performs, from
-    the kernel's optional counter; the counted launch must still equal the
-    plain version bit for bit.  In "none" every ray tests every surface
-    primitive."""
-    n = torch.zeros(2, dtype=torch.int64, device=rays.device)
+    """The (sphere, quad, box slab) tests one launch of ``packed.accel``
+    performs, from the kernel's optional counter; the counted launch must
+    still equal the plain version bit for bit.  In "none" every ray tests
+    every surface sphere and every box, and at most every surface quad
+    (every one when the scene has no closed box)."""
+    n = torch.zeros(ch.N_TESTS, dtype=torch.int64, device=rays.device)
     got = ch._launch(packed, rays, T_MIN, n)
     torch.cuda.synchronize()
     assert torch.equal(got, want), f"{name}: the counted launch differs"
-    n_s, n_q = int(n[0]), int(n[1])
+    n_s, n_q, n_b = (int(x) for x in n)
     if packed.accel == "none":
         R = rays.shape[1]
-        surf_s = int((packed.sph[:packed.n_sph, 9] != 0).sum())
-        surf_q = int((packed.quad[:packed.n_quad, 12] != 0).sum())
-        assert (n_s, n_q) == (R * surf_s, R * surf_q), \
-            f"{name}: counted {(n_s, n_q)} tests"
-    return n_s, n_q
+        surf_s, surf_q = surface_counts(packed)
+        n_box = packed.aab_tab.shape[0]
+        assert n_s == R * surf_s and n_b == R * n_box and n_q <= R * surf_q \
+            and (n_box or n_q == R * surf_q), \
+            f"{name}: counted {(n_s, n_q, n_b)} tests"
+    return n_s, n_q, n_b
 
 
 def bound_parts(packed, R, n_tests):
     """(bytes bound, operations bound) of one call in ms: the bytes the
     call must move (the [8, R] rays in, the [32, R] rows out, every table
-    once) over HBM bandwidth, and the operations of the (sphere, quad)
-    tests ``n_tests`` that the call performed (counted by the kernel) over
-    the float32 peak."""
+    once) over HBM bandwidth, and the operations of the (sphere, quad, box
+    slab) tests ``n_tests`` over the float32 peak."""
     tabs = [packed.sph, packed.quad, packed.joined]
-    if packed.accel_tab is not None:
-        tabs.append(packed.accel_tab)
+    for t in (packed.accel_tab, packed.aab_tab, packed.aab_faces,
+              packed.gen_rows):
+        if t is not None:
+            tabs.append(t)
     n_bytes = R * (8 + ch.ROW_K) * 4 + sum(t.numel() * 4 for t in tabs)
-    n_s, n_q = n_tests
+    n_s, n_q, n_b = n_tests
     return (n_bytes / HBM_BYTES_PER_S * 1e3,
-            (n_s * SPHERE_OPS + n_q * QUAD_OPS) / FP32_OPS_PER_S * 1e3)
+            (n_s * SPHERE_OPS + n_q * QUAD_OPS + n_b * SLAB_OPS)
+            / FP32_OPS_PER_S * 1e3)
+
+
+def brute_force_tests(packed, R):
+    """The tests of a scan of every surface primitive (the "none" kernel
+    before its box cull), whose bound is printed beside the bound of the
+    tests counted."""
+    surf_s, surf_q = surface_counts(packed)
+    return R * surf_s, R * surf_q, 0
 
 
 def bound_ms(packed, R, n_tests):
@@ -280,27 +399,115 @@ def bound_ms(packed, R, n_tests):
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
+ORIGINS = ("camera", "far", "face", "inside")
+
+
+def box_bounds(data, meta):
+    """(lo, hi), numpy [n_box, 3]: the unpadded bounds of the closed boxes of
+    ``meta.aab``."""
+    Q, u, v = data.quad_Q, data.quad_u, data.quad_v
+    corners = torch.stack([Q, Q + u, Q + v, Q + u + v])
+    faces = torch.tensor(meta.aab, device=Q.device).long()
+    return (corners.amin(0)[faces].amin(1).cpu().numpy(),
+            corners.amax(0)[faces].amax(1).cpu().numpy())
+
+
+def box_edge_rays(lo, hi, eye, n, seed, origins=ORIGINS, tiny=0.15):
+    """[8, n] float32 rays on the CPU aimed at points on the edges and
+    corners of the boxes [lo, hi], each coordinate moved by -4..4 ulps, from
+    the kinds of origin ``origins`` in turn: "camera" (``eye``), "far"
+    (N(0, 1500^2) a coordinate), "face" (a point on a box face) and
+    "inside" (a point inside a box, half of those with a random direction).
+    A share ``tiny`` of the rays get one direction component under 1e-8."""
+    g = np.random.RandomState(seed)
+
+    def box_points(m):
+        b = g.randint(0, lo.shape[0], m)
+        return lo[b], hi[b], (lo[b] + g.rand(m, 3) * (hi[b] - lo[b])
+                              ).astype(np.float32)
+
+    L, H, p = box_points(n)
+    # one free axis (an edge) or none (a corner)
+    p = np.where(g.randint(0, 4, n)[:, None] == np.arange(3), p,
+                 np.where(g.rand(n, 3) < 0.5, L, H)).astype(np.float32)
+    ulps = g.randint(-4, 5, (n, 3))
+    toward = np.where(ulps > 0, np.float32(np.inf), np.float32(-np.inf))
+    for k in range(4):
+        p = np.where(np.abs(ulps) > k, np.nextafter(p, toward), p)
+    kind = np.asarray(origins)[np.arange(n) % len(origins)]
+    L2, H2, o = box_points(n)
+    axis = g.randint(0, 3, n)
+    on_face = np.where(g.rand(n) < 0.5, L2[np.arange(n), axis],
+                       H2[np.arange(n), axis])
+    face, far = kind == "face", kind == "far"
+    o[face, axis[face]] = on_face[face]
+    o[kind == "camera"] = np.asarray(eye, np.float32)
+    o[far] = g.randn(int(far.sum()), 3) * 1500
+    d = (p - o).astype(np.float32)
+    free = (kind == "inside") & (g.rand(n) < 0.5)
+    d[free] = g.randn(int(free.sum()), 3)
+    small = g.rand(n) < tiny
+    d[small, g.randint(0, 3, n)[small]] = g.randn(int(small.sum())) * 1e-9
+    rays = torch.zeros(8, n)
+    rays[0:3] = torch.from_numpy(o).T
+    rays[3:6] = torch.from_numpy(d).T
+    rays[6] = torch.from_numpy(g.rand(n).astype(np.float32))
+    return rays
+
+
+def quad_share(dev, card):
+    """The share of "none"'s time that scene 7's (the Cornell box's) quads
+    take on its camera and bounce rays, and the share of its axis-aligned
+    quads (what the JAX package's _aaq_group_best takes): the kernel timed
+    with every quad, without the axis-aligned ones and without any (the
+    rows the kernel scans cut, so only these timings, not a result)."""
+    world7, cam7 = sc.build_scene(7)
+    s7 = Scene(world7, dev)
+    rays = ch.stack_rays(*camera_bounce_rays(s7, cam7, R_PARITY // 2, dev))
+    p = s7.packed["none"]
+    general = [r for r in p.gen_rows.tolist() if s7.meta.aaq_class[r] == 9]
+    cuts = {"all": p.gen_rows,
+            "general": torch.tensor(general, dtype=torch.int32, device=dev),
+            "none": p.gen_rows[:0]}
+    ms = {k: time_ms(lambda: ch._launch(dataclasses.replace(p, gen_rows=g),
+                                        rays, T_MIN), calls=10)
+          for k, g in cuts.items()}
+    log(f"quad share scene7 R={rays.shape[1]} ({len(p.gen_rows)} quads, "
+        f"{len(p.gen_rows) - len(general)} axis-aligned), ten calls back to "
+        f"back: none {ms['all']:.4f} ms, without the axis-aligned quads {ms['general']:.4f} ms, without "
+        f"quads {ms['none']:.4f} ms: quads {1 - ms['none'] / ms['all']:.4f}, "
+        f"axis-aligned quads {1 - ms['general'] / ms['all']:.4f} of the time "
+        f"| {card}")
+
+
 def parity_and_timing(dev, card):
-    """Phase 4.  Returns {mode: {"err", "ms", "plain_ms", "bound_ms",
-    "bound_by"}} at scene 9's shapes, and the four ray sets
-    {name: (scene, rays, plain output)}."""
+    """Phase 4.  Returns {mode: {"err", "ms", "ms_back_to_back",
+    "plain_ms", "bound_ms", "bound_by"}} at scene 9's shapes (the bound of
+    the tests counted), and the ray sets {name: (scene, rays, plain
+    output)}."""
     world1, cam1 = sc.random_spheres()
     world9, cam9 = sc.final_scene(400, 250, 4)
     world16, cam16 = sc.spread_spheres()
     s1, s9, s16 = Scene(world1, dev), Scene(world9, dev), Scene(world16, dev)
     assert ch.auto_accel(s16.meta.n_spheres) == "bvh"
+    stack = ch.stack_rays
     sets = {
-        "scene1": (s1, camera_bounce_rays(s1, cam1, R_PARITY // 2, dev)),
-        "scene9": (s9, camera_bounce_rays(s9, cam9, R_SCENE9 // 2, dev)),
+        "scene1": (s1, stack(*camera_bounce_rays(s1, cam1, R_PARITY // 2,
+                                                 dev))),
+        "scene9": (s9, stack(*camera_bounce_rays(s9, cam9, R_SCENE9 // 2,
+                                                 dev))),
+        "scene9_edges": (s9, box_edge_rays(*box_bounds(s9.data, s9.meta),
+                                           cam9.lookfrom, R_EDGES, 11
+                                           ).to(dev)),
         "moving_mixed": (Scene(moving_mixed_world(), dev),
-                         random_rays(R_PARITY, dev)),
-        "spread16k": (s16, camera_bounce_rays(s16, cam16, R_PARITY // 2,
-                                              dev)),
+                         stack(*random_rays(R_PARITY, dev))),
+        "spread16k": (s16, stack(*camera_bounce_rays(s16, cam16,
+                                                     R_PARITY // 2, dev))),
     }
     err = dict.fromkeys(ch.ACCELS, 0.0)
-    times, tests, out_sets = {}, {}, {}
-    for name, (scene, (ro, rd, tme)) in sets.items():
-        rays = ch.stack_rays(ro, rd, tme)
+    times, b2b, tests, out_sets = {}, {}, {}, {}
+    for name, (scene, rays) in sets.items():
+        R = rays.shape[1]
         want = ch.closest_hit_reference(scene.packed["none"], rays)
         out_sets[name] = (scene, rays, want)
         tests[name] = {}
@@ -309,31 +516,38 @@ def parity_and_timing(dev, card):
                 f"{name}/{mode}", scene.packed[mode], rays, want))
             tests[name][mode] = count_tests(f"{name}/{mode}",
                                             scene.packed[mode], rays, want)
-        plain = time_ms(lambda: ch.closest_hit_reference(
+        row = {mode: time_ms(lambda: ch._launch(scene.packed[mode], rays,
+                                                T_MIN))
+               for mode in ch.ACCELS}
+        b2b[name] = {mode: time_ms(lambda: ch._launch(scene.packed[mode],
+                                                      rays, T_MIN), calls=10)
+                     for mode in ch.ACCELS}
+        plain = row["plain"] = time_ms(lambda: ch.closest_hit_reference(
             scene.packed["none"], rays), reps=3, warmup=1)
-        row = {"plain": plain}
-        for mode in ch.ACCELS:
-            row[mode] = time_ms(lambda: ch._launch(scene.packed[mode], rays,
-                                                   T_MIN))
         times[name] = row
-        R = rays.shape[1]
         parts = []
         for m in ch.ACCELS:
             t_bytes, t_ops = bound_parts(scene.packed[m], R, tests[name][m])
-            n_s, n_q = tests[name][m]
-            parts.append(f"{m} {row[m]:.4f} ms (operations bound "
+            n_s, n_q, n_b = tests[name][m]
+            parts.append(f"{m} {row[m]:.4f} ms, back to back "
+                         f"{b2b[name][m]:.4f} ms (operations bound "
                          f"{t_ops:.4f} ms for {n_s / R:.1f} sphere + "
-                         f"{n_q / R:.1f} quad tests a ray, bytes bound "
-                         f"{t_bytes:.4f} ms)")
+                         f"{n_q / R:.1f} quad + {n_b / R:.1f} box slab tests "
+                         f"a ray, bytes bound {t_bytes:.4f} ms)")
+        brute = bound_parts(scene.packed["none"], R,
+                            brute_force_tests(scene.packed["none"], R))[1]
         log(f"timing {name} R={R}: " + ", ".join(parts)
-            + f", plain {plain:.4f} ms | {card}")
-    R = R_SCENE9
+            + f", plain {plain:.4f} ms; none brute-force operations bound "
+            f"{brute:.4f} ms | {card}")
+    quad_share(dev, card)
     out = {}
     for mode in ch.ACCELS:
-        b, by = bound_ms(s9.packed[mode], R, tests["scene9"][mode])
+        b, by = bound_ms(s9.packed[mode], R_SCENE9, tests["scene9"][mode])
         out[mode] = {"err": err[mode], "ms": times["scene9"][mode],
+                     "ms_back_to_back": b2b["scene9"][mode],
                      "plain_ms": times["scene9"]["plain"], "bound_ms": b,
                      "bound_by": by}
+    del out_sets["scene9_edges"]
     return out, out_sets
 
 
@@ -426,6 +640,7 @@ def backward_parity_and_timing(dev, card, sets):
     e, rel = compare_bwd("scene1 grad/bwd", args)
     err = max(err, e)
     ms = time_ms(lambda: ch._launch_bwd(*args))
+    ms_b2b = time_ms(lambda: ch._launch_bwd(*args), calls=10)
     plain = time_ms(lambda: ch.closest_hit_bwd_reference(*args), reps=5,
                     warmup=1)
     b, by = bwd_bound_ms(args)
@@ -433,10 +648,10 @@ def backward_parity_and_timing(dev, card, sets):
     ground = int((args[2][args[1] == K_SPHERE] == int(torch.argmax(
         s1.data.sph_radius))).sum())
     log(f"bwd timing scene1 grad R={R} ({hits} hits, {ground} on the ground "
-        f"sphere): kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} "
-        f"ms by {by} | {card}")
-    return {"err": err, "ms": ms, "plain_ms": plain, "bound_ms": b,
-            "bound_by": by}
+        f"sphere): kernel {ms:.4f} ms, back to back {ms_b2b:.4f} ms, plain "
+        f"{plain:.4f} ms, bound {b:.4f} ms by {by} | {card}")
+    return {"err": err, "ms": ms, "ms_back_to_back": ms_b2b,
+            "plain_ms": plain, "bound_ms": b, "bound_by": by}
 
 
 def step_grads_ok(loss, grads, need=()):
@@ -602,6 +817,11 @@ def main():
     build_s = time.perf_counter() - t0
     log(f"build: closest_hit {'loaded from cache' if built else 'compiled'}"
         f" in {build_s:.2f} s -> {_build.library_path('closest_hit')}")
+    for line in ptxas_report("closest_hit"):
+        log(f"ptxas {line}")
+    for (label, part), counts in sass_mix("closest_hit").items():
+        log(f"sass {label} {part}: " + ", ".join(
+            f"{k} {v}" for k, v in counts.items() if v))
 
     # ---- 3. philox ----
     u = rng.uniform4(SEED, torch.tensor([123], device=dev),
@@ -713,6 +933,7 @@ def main():
         "source": "mort_tpu_torch/csrc/closest_hit.cu",
         "replaces": replaces[k], "launches": launches[k],
         "max_abs_err": kern[k]["err"], "ms": kern[k]["ms"],
+        "ms_back_to_back": kern[k]["ms_back_to_back"],
         "plain_ms": kern[k]["plain_ms"], "bound_ms": kern[k]["bound_ms"],
         "bound_by": kern[k]["bound_by"], "library_ms": None,
         "shape": shapes[k]} for k in ch.ACCELS + ("bwd",)]}))

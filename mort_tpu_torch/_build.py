@@ -6,10 +6,12 @@ interface, bound with ``ctypes``:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o lib<name>_<key>.so csrc/<name>.cu
 
-(no ``--use_fast_math``: square roots and divisions stay IEEE).  The
-library lands in ``build/mort_tpu_torch/`` beside the package, named by a
-hash of the source and the flags, so an edited source rebuilds and an
-unchanged one loads at once.
+(no ``--use_fast_math``: square roots and divisions stay IEEE), with
+``-Xptxas -v``, whose report of each kernel's registers, spills and shared
+memory is kept beside the library (``build_log``).  The library lands in
+``build/mort_tpu_torch/`` beside the package, named by a hash of the source
+and the flags, so an edited source rebuilds and an unchanged one loads at
+once.
 """
 
 from __future__ import annotations
@@ -26,14 +28,15 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "mort_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of each library's exported functions: (restype, argtypes).
 SIGNATURES = {
     "closest_hit": {
         "mort_closest_hit": (_I, (_P, _I, _P, _I, _P, _I, _P, _I, _I, _F,
-                                  _I, _P, _I, _I, _P, _P, _P)),
+                                  _I, _P, _I, _I, _P, _P, _P, _I, _I, _P,
+                                  _P, _P)),
         "mort_closest_hit_bwd": (_I, (_P, _I, _P, _P, _P, _P, _P, _P, _I,
                                       _I, _F, _P, _P, _P, _P, _P)),
         "mort_cuda_error_string": (ctypes.c_char_p, (_I,)),
@@ -75,11 +78,17 @@ def build(name: str) -> Path:
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}) for "
                                f"{name}.cu:\n{res.stdout}{res.stderr}")
+        out.with_suffix(".log").write_text(res.stdout + res.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (the ``-Xptxas -v`` report) of the build of ``name``."""
+    return build(name).with_suffix(".log").read_text()
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -1,11 +1,13 @@
-// Closest sphere/quad hit + joined shading row, one thread per ray.
+// Closest sphere/quad hit + joined shading row.
 //
 // Replaces the JAX package's Pallas TPU kernel
 // mort_tpu/render/pallas_intersect.py::_closest_hit (kernel body
 // _make_kernel) in its three accel modes:
 //
-//   "none"  the sphere scan _sphere_chunk_best, the plain quad loop
-//           _quad_chunk_best, the merge and the row emit _emit_row;
+//   "none"  the sphere scan _sphere_chunk_best, the closed-box path
+//           _aab_best (as a slab cull in front of the general face test),
+//           the general-quad scan _quad_gen_best, the merge and the row
+//           emit _emit_row (its notes are at the kernel, below);
 //   "cull"  the same tests, one CL-sized sub-cluster at a time, each behind
 //           an AABB slab test (cluster_boxes);
 //   "bvh"   traversal of the implicit heap over those sub-clusters
@@ -21,14 +23,8 @@
 // one indexed load, and a stack per ray that visits children near-first
 // along the ray's own direction.
 //
-// What bounds it on an H100: float32 issue in "none".  Each (ray, sphere)
-// pair costs about 25 flops (two 3-term dots for half_b, two for c_term,
-// the discriminant, a square root and the root pick), so scene 1 (485
-// spheres) at a pool of 2^18 rays is ~3.2 Gflop per bounce.  The sphere and
-// quad records are staged through shared memory in tiles of 256 and read by
-// every thread of the block at the same address (a broadcast, no bank
-// conflicts), so device memory traffic is the rays in, the [32, R] rows out
-// and one 108-byte row load per ray.  "cull" and "bvh" read each visited
+// What bounds "none" on an H100 is float32 issue (its notes, below).
+// "cull" and "bvh" (one thread per ray) read each visited
 // sub-cluster's records from global memory (__ldg, L1/L2-resident for
 // scenes of a few thousand primitives): their work is the tests a ray's
 // pruning leaves it, and divergence between the rays of a warp.
@@ -60,7 +56,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;   // rays per block, and primitives per tile
+constexpr int kThreads = 256;   // threads per block
 constexpr int kSphCols = 10;    // cx cy cz vx vy vz c.c-r^2 2c.cv |cv|^2 surf
 constexpr int kQuadCols = 13;   // n(3) D vxw(3) qa wxu(3) qb surf
 constexpr int kRowK = 32;       // rows of the [32, R] output
@@ -71,7 +67,8 @@ constexpr int kSphere = 1;
 constexpr int kQuad = 2;
 constexpr int kCL = 128;        // primitives per sub-cluster (closest_hit.CL)
 constexpr int kStack = 32;      // bvh stack depth (closest_hit.STACK)
-constexpr int kBoxCols = 8;     // cull boxes: lo xyz, hi xyz, 0, 0
+constexpr int kBoxCols = 8;     // cull boxes: lo xyz, hi xyz, 0, 0; closed
+                                // boxes: lo xyz, hi xyz, max |corner|, 0
 constexpr int kNodeCols = 6;    // bvh nodes: lo xyz, hi xyz
 constexpr float kTiny = 1e-30f; // slab substitute for a zero direction
 constexpr int kModeNone = 0, kModeCull = 1, kModeBvh = 2;
@@ -108,14 +105,8 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ rays,
   return r;
 }
 
-// Column c of a primitive record: in a shared-memory tile (column-major,
-// kThreads per column), or a row of the table in global memory.
-struct TileRec {
-  const float* p;
-  __device__ __forceinline__ float operator()(int c) const {
-    return p[c * kThreads];
-  }
-};
+// Column c of a primitive record in a row of the table in global memory
+// (the records staged in shared memory are Rec12 and Rec16, below).
 struct RowRec {
   const float* __restrict__ p;
   __device__ __forceinline__ float operator()(int c) const {
@@ -189,11 +180,12 @@ __device__ __forceinline__ bool quad_test(const Ray& r, Rec rec, int row,
   return true;
 }
 
-// Adds one thread's sphere and quad test counts to n_tests[0..1].
+// Adds one thread's sphere, quad and box slab test counts to n_tests[0..2].
 __device__ __forceinline__ void add_counts(unsigned long long* n_tests,
-                                           int n_s, int n_q) {
+                                           int n_s, int n_q, int n_b = 0) {
   if (n_s) atomicAdd(n_tests, (unsigned long long)n_s);
   if (n_q) atomicAdd(n_tests + 1, (unsigned long long)n_q);
+  if (n_b) atomicAdd(n_tests + 2, (unsigned long long)n_b);
 }
 
 // Merge (sphere wins ties) and write the winner's joined row, t, kind, idx.
@@ -210,73 +202,13 @@ __device__ __forceinline__ void emit(const Ray& r, float best, int best_i,
   const int idx = q_better ? qi : best_i;
   const int g = q_better ? quad_base + qi : best_i;
   const float* src = joined + (size_t)g * k_join;
-  for (int k = 0; k < kRowT; ++k)
-    row_out[(size_t)k * R + i] = k < k_join ? src[k] : 0.0f;
-  row_out[(size_t)kRowT * R + i] = t;
-  row_out[(size_t)kRowKind * R + i] = (float)kind;
-  row_out[(size_t)kRowIdx * R + i] = (float)idx;
-  for (int k = kRowIdx + 1; k < kRowK; ++k) row_out[(size_t)k * R + i] = 0.0f;
-}
-
-// kCount: also count the tests into n_tests (a separate instantiation, so
-// the uncounted kernels carry no counting code).
-template <bool kCount>
-__global__ void __launch_bounds__(kThreads)
-closest_hit_kernel(const float* __restrict__ rays, int R,
-                   const float* __restrict__ sph, int n_sph,
-                   const float* __restrict__ quad, int n_quad,
-                   const float* __restrict__ joined, int k_join,
-                   int quad_base, float t_min, float* __restrict__ row_out,
-                   unsigned long long* __restrict__ n_tests) {
-  __shared__ float s_sph[kSphCols][kThreads];
-  __shared__ float s_quad[kQuadCols][kThreads];
-
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = i < R;
-  // ragged tail: compute on a real ray, so every thread reaches the barriers
-  const Ray r = load_ray(rays, R, live ? i : R - 1, t_min);
-
-  // ---- spheres: roots scaled by a ----
-  float best = CUDART_INF_F;
-  int best_i = 0, n_s = 0, n_q = 0;
-  for (int base = 0; base < n_sph; base += kThreads) {
-    const int n = min(kThreads, n_sph - base);
-    __syncthreads();
-    if (threadIdx.x < n) {
-      const float* rec = sph + (size_t)(base + threadIdx.x) * kSphCols;
-#pragma unroll
-      for (int c = 0; c < kSphCols; ++c) s_sph[c][threadIdx.x] = rec[c];
-    }
-    __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      const bool tested =
-          sphere_test(r, TileRec{&s_sph[0][j]}, base + j, best, best_i);
-      if constexpr (kCount) n_s += tested;
-    }
+  for (int k = 0; k < kRowK; ++k) {
+    float v = k < k_join ? src[k] : 0.0f;   // k_join <= kRowT
+    if (k == kRowT) v = t;
+    if (k == kRowKind) v = (float)kind;
+    if (k == kRowIdx) v = (float)idx;
+    row_out[(size_t)k * R + i] = v;
   }
-
-  // ---- quads ----
-  float qt = CUDART_INF_F;
-  int qi = 0;
-  for (int base = 0; base < n_quad; base += kThreads) {
-    const int n = min(kThreads, n_quad - base);
-    __syncthreads();
-    if (threadIdx.x < n) {
-      const float* rec = quad + (size_t)(base + threadIdx.x) * kQuadCols;
-#pragma unroll
-      for (int c = 0; c < kQuadCols; ++c) s_quad[c][threadIdx.x] = rec[c];
-    }
-    __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      const bool tested =
-          quad_test(r, TileRec{&s_quad[0][j]}, base + j, qt, qi);
-      if constexpr (kCount) n_q += tested;
-    }
-  }
-
-  if (!live) return;
-  if constexpr (kCount) add_counts(n_tests, n_s, n_q);
-  emit(r, best, best_i, qt, qi, joined, k_join, quad_base, R, i, row_out);
 }
 
 // Reciprocal direction for the slab tests; |d| < kTiny becomes +-kTiny.
@@ -284,14 +216,12 @@ __device__ __forceinline__ float slab_inv(float d) {
   return 1.0f / (fabsf(d) < kTiny ? (d >= 0.0f ? kTiny : -kTiny) : d);
 }
 
-// Slab test of the box at `b` (lo xyz, hi xyz): the ray enters it in
-// (t_min, bound].  An inverted box (padding) is never entered.
-__device__ __forceinline__ bool box_reachable(const Ray& r, float irx,
-                                              float iry, float irz,
-                                              const float* __restrict__ b,
-                                              float bound) {
-  const float lx = __ldg(b), ly = __ldg(b + 1), lz = __ldg(b + 2);
-  const float hx = __ldg(b + 3), hy = __ldg(b + 4), hz = __ldg(b + 5);
+// Slab test of the box [lx, hx] x [ly, hy] x [lz, hz]: the ray enters it
+// in (t_min, bound].  An inverted box (padding) is never entered.
+__device__ __forceinline__ bool slab_enters(const Ray& r, float irx,
+                                            float iry, float irz, float lx,
+                                            float ly, float lz, float hx,
+                                            float hy, float hz, float bound) {
   if (!(lx <= hx)) return false;
   const float x0 = (lx - r.ox) * irx, x1 = (hx - r.ox) * irx;
   const float y0 = (ly - r.oy) * iry, y1 = (hy - r.oy) * iry;
@@ -299,6 +229,242 @@ __device__ __forceinline__ bool box_reachable(const Ray& r, float irx,
   const float lo = fmaxf(fmaxf(fminf(x0, x1), fminf(y0, y1)), fminf(z0, z1));
   const float hi = fminf(fminf(fmaxf(x0, x1), fmaxf(y0, y1)), fmaxf(z0, z1));
   return lo <= hi && hi > r.t_min && lo <= bound;
+}
+
+// slab_enters on the box at `b` (lo xyz, hi xyz) in global memory.
+__device__ __forceinline__ bool box_reachable(const Ray& r, float irx,
+                                              float iry, float irz,
+                                              const float* __restrict__ b,
+                                              float bound) {
+  return slab_enters(r, irx, iry, irz, __ldg(b), __ldg(b + 1), __ldg(b + 2),
+                     __ldg(b + 3), __ldg(b + 4), __ldg(b + 5), bound);
+}
+
+// ---- "none" ----
+//
+// Replaces _make_kernel's "none" branch: the sphere scan _sphere_chunk_best,
+// the closed-box path _aab_best, the general-quad scan _quad_gen_best over
+// the compacted table of pack_quads_general, the merge and _emit_row.
+//
+// Each ray scans (1) every sphere, (2) every quad that is no face of a
+// closed axis-aligned box (gen_rows, with their registry rows as ids) and
+// (3) every box of SceneMeta.aab behind a slab test, running quad_test on a
+// box's six faces (read through __ldg by registry row) only where the ray
+// enters it.  The lexicographic (t, row) minimum does not depend on the
+// order of the visits, and a box is entered whenever it could hold a face
+// hit at t <= bound, ties included, so the result is the plain scan's bit
+// for bit.  _aab_best's own arithmetic (t read off the slab, the face from
+// the axis that attains it) is not taken: that t is an ulp away from the
+// general (D - n.o)/(n.d), and the slab here only decides which faces are
+// tested.  The box is widened by kAabSlack (max |o| + max |corner|) before
+// its slab test (box_admits): the 1e-4 pad alone is thinner than the
+// rounding of the window test at coordinates near 1000 (PERF.md).
+//
+// What bounds it on an H100: instruction issue.  A sphere test is 34
+// rounded float ops (none may fuse into an FMA) and ~45 instructions on
+// its common path; a quad test is 12 counted ops but as many instructions
+// (13 loads, an IEEE division); a box slab test 36 ops.  So scene 9 (1,007
+// spheres, one general quad and 400 boxes, of whose faces a ray tests a
+// few) issues ~60 k instructions a ray where testing all 2,401 quads issued
+// ~150 k.  What the design does about it:
+// - records are staged in shared memory padded to 16-byte multiples (a
+//   sphere in 12 floats, a quad in 16 with its registry row, a box in 8),
+//   so a test reads its record in 3-4 float4 broadcasts, not 10-13 scalar
+//   loads;
+// - tiles are copied with cp.async into a two-stage buffer, the next
+//   tile's copy in flight while the block tests the current one; one 32 KB
+//   buffer serves the three phases.
+// One thread a ray.  Threads sharing a ray (2 or 4, each testing every
+// S-th record, merged by shuffles) and two rays a thread (a record loaded
+// once serving two tests) were built and timed: neither was faster on the
+// rays of scene 1 (R = 2^18) or scene 9 (R = 2^16) (PERF.md).
+
+constexpr int kStage = 4096;       // floats in one stage of the tile buffer
+constexpr int kSphF = 12;          // staged sphere: kSphCols, 2 pad
+constexpr int kQuadF = 16;         // staged quad: kQuadCols, row id, 2 pad
+constexpr int kTile = 256;         // spheres or quads per tile
+constexpr int kBoxTile = kStage / kBoxCols;   // 512 boxes per tile
+constexpr float kAabSlack = 1.52587890625e-05f;   // 2^-16, closest_hit.py
+
+struct Rec12 {
+  float v[12];
+  __device__ __forceinline__ float operator()(int c) const { return v[c]; }
+};
+struct Rec16 {
+  float v[16];
+  __device__ __forceinline__ float operator()(int c) const { return v[c]; }
+};
+
+__device__ __forceinline__ Rec12 lds_sph(const float* p) {
+  const float4* q = reinterpret_cast<const float4*>(p);
+  const float4 a = q[0], b = q[1], c = q[2];
+  return Rec12{{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y, c.z, c.w}};
+}
+
+__device__ __forceinline__ Rec16 lds_quad(const float* p) {
+  const float4* q = reinterpret_cast<const float4*>(p);
+  const float4 a = q[0], b = q[1], c = q[2], d = q[3];
+  return Rec16{{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y, c.z, c.w,
+                d.x, d.y, d.z, d.w}};
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// Runs body(tile, base, n) over [0, n_total) in tiles of `tile` records,
+// stage(dst, base, n) copying each tile into one half of `buf` while the
+// block works on the other.  Every thread of the block calls it together.
+template <class Stage, class Body>
+__device__ __forceinline__ void pipelined(int n_total, int tile, float* buf,
+                                          Stage stage, Body body) {
+  if (n_total <= 0) return;
+  stage(buf, 0, min(tile, n_total));
+  cp_async_commit();
+  int half = 0;
+  for (int base = 0; base < n_total; base += tile, half ^= 1) {
+    const int next = base + tile;
+    if (next < n_total) {
+      stage(buf + (half ^ 1) * kStage, next, min(tile, n_total - next));
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    body(buf + half * kStage, base, min(tile, n_total - base));
+    __syncthreads();
+  }
+}
+
+// Whether the ray may hit a face of the staged box (lo = a.xyz, hi = (a.w,
+// b.x, b.y), b.z = max |corner|) at t in (t_min, bound]: slab_enters on the
+// box widened by kAabSlack (s_ray + b.z), s_ray = max |o|.  A face hit that
+// quad_test reports lies within ~8 ulps of s_ray + b.z of the box (the
+// rounding of its t and window terms); the widening is 2^4 times that.
+// Without it, rays aimed at box edges from far origins lose winning faces
+// (tests/test_torch_box_cull.py).
+__device__ __forceinline__ bool box_admits(const Ray& r, float irx, float iry,
+                                           float irz, float s_ray, float4 a,
+                                           float4 b, float bound) {
+  const float m = (s_ray + b.z) * kAabSlack;
+  return slab_enters(r, irx, iry, irz, a.x - m, a.y - m, a.z - m, a.w + m,
+                     b.x + m, b.y + m, bound);
+}
+
+// kCount: also count the tests into n_tests (a separate instantiation, so
+// the uncounted kernels carry no counting code).  Six blocks an SM (40
+// registers) ran faster than five (48) and eight (32, spilling).
+template <bool kCount>
+__global__ void __launch_bounds__(kThreads, 6)
+closest_hit_none_kernel(const float* __restrict__ rays, int R,
+                        const float* __restrict__ sph, int n_sph,
+                        const float* __restrict__ quad,
+                        const int* __restrict__ gen_rows, int n_gen,
+                        const float* __restrict__ boxes,
+                        const int* __restrict__ faces, int n_box,
+                        const float* __restrict__ joined, int k_join,
+                        int quad_base, float t_min,
+                        float* __restrict__ row_out,
+                        unsigned long long* __restrict__ n_tests) {
+  __shared__ __align__(16) float s_buf[2 * kStage];
+  const int tid = threadIdx.x;
+  const int i = blockIdx.x * kThreads + tid;
+  const bool live = i < R;
+  // ragged tail: compute on a real ray, so every thread reaches the barriers
+  const Ray r = load_ray(rays, R, live ? i : R - 1, t_min);
+  float best = CUDART_INF_F, qt = CUDART_INF_F;
+  int best_i = 0, qi = 0, n_s = 0, n_q = 0, n_b = 0;
+
+  // ---- 1. spheres: roots scaled by a ----
+  pipelined(
+      n_sph, kTile, s_buf,
+      [&](float* dst, int base, int n) {
+        const float* src = sph + (size_t)base * kSphCols;
+        for (int e = tid; e < n * kSphCols; e += kThreads) {
+          const int j = e / kSphCols;
+          cp_async4(dst + j * kSphF + (e - j * kSphCols), src + e);
+        }
+      },
+      [&](const float* tile, int base, int n) {
+        for (int j = 0; j < n; ++j) {
+          const bool tested = sphere_test(r, lds_sph(tile + j * kSphF),
+                                          base + j, best, best_i);
+          if constexpr (kCount) n_s += tested;
+        }
+      });
+
+  // ---- 2. the quads that are no box's face, by registry row ----
+  pipelined(
+      n_gen, kTile, s_buf,
+      [&](float* dst, int base, int n) {
+        for (int e = tid; e < n * kQuadCols; e += kThreads) {
+          const int j = e / kQuadCols, c = e - j * kQuadCols;
+          const int row = __ldg(gen_rows + base + j);
+          cp_async4(dst + j * kQuadF + c, quad + (size_t)row * kQuadCols + c);
+        }
+        if (tid < n)
+          dst[tid * kQuadF + kQuadCols] = __int_as_float(
+              __ldg(gen_rows + base + tid));
+      },
+      [&](const float* tile, int base, int n) {
+        for (int j = 0; j < n; ++j) {
+          const Rec16 rec = lds_quad(tile + j * kQuadF);
+          const bool tested =
+              quad_test(r, rec, __float_as_int(rec.v[kQuadCols]), qt, qi);
+          if constexpr (kCount) n_q += tested;
+        }
+      });
+
+  // ---- 3. closed boxes: a slab test, then the faces of an entered box ----
+  if (n_box > 0) {
+    const float irx = slab_inv(r.dx), iry = slab_inv(r.dy);
+    const float irz = slab_inv(r.dz);
+    const float s_ray = fmaxf(fmaxf(fabsf(r.ox), fabsf(r.oy)), fabsf(r.oz));
+    const float rcp_a = __frcp_rn(r.a);
+    pipelined(
+        n_box, kBoxTile, s_buf,
+        [&](float* dst, int base, int n) {
+          const float* src = boxes + (size_t)base * kBoxCols;
+          for (int e = tid; e < n * (kBoxCols / 4); e += kThreads)
+            cp_async16(dst + 4 * e, src + 4 * e);
+        },
+        [&](const float* tile, int base, int n) {
+          const float4* t4 = reinterpret_cast<const float4*>(tile);
+          for (int j = 0; j < n; ++j) {
+            if constexpr (kCount) ++n_b;
+            const float bound = fminf(mul(best, rcp_a), qt);
+            if (!box_admits(r, irx, iry, irz, s_ray, t4[2 * j], t4[2 * j + 1],
+                            bound))
+              continue;
+            const int* f = faces + (size_t)(base + j) * 6;
+            for (int q = 0; q < 6; ++q) {
+              const int row = __ldg(f + q);
+              const bool tested = quad_test(
+                  r, RowRec{quad + (size_t)row * kQuadCols}, row, qt, qi);
+              if constexpr (kCount) n_q += tested;
+            }
+          }
+        });
+  }
+
+  if (!live) return;
+  if constexpr (kCount) add_counts(n_tests, n_s, n_q, n_b);
+  emit(r, best, best_i, qt, qi, joined, k_join, quad_base, R, i, row_out);
 }
 
 // Every primitive of sub-cluster s: sphere rows for s < n_sph_sub, then
@@ -580,25 +746,47 @@ closest_hit_bwd_kernel(const float* __restrict__ rays, int R,
     warp_add(peers, lead, hit ? drow[(size_t)c * R + i] : 0.0f, row_dst + c);
 }
 
+// The operands of a forward launch.
+struct FwdArgs {
+  const float* rays;
+  int R;
+  const float* sph;
+  int n_sph;
+  const float* quad;
+  int n_quad;
+  const float* joined;
+  int k_join, quad_base;
+  float t_min;
+  const float* accel;
+  int n_sph_sub, n_accel;
+  const float* aab_tab;
+  const int* aab_faces;
+  const int* gen_rows;
+  int n_box, n_gen;
+  float* row_out;
+  unsigned long long* n_tests;
+};
+
 // Launches the forward kernel of `mode`, counting its tests when kCount.
 template <bool kCount>
-void launch(int mode, dim3 grid, cudaStream_t s, const float* rays, int R,
-            const float* sph, int n_sph, const float* quad, int n_quad,
-            const float* joined, int k_join, int quad_base, float t_min,
-            const float* accel, int n_sph_sub, int n_accel, float* row_out,
-            unsigned long long* n_tests) {
-  if (mode == kModeNone)
-    closest_hit_kernel<kCount><<<grid, kThreads, 0, s>>>(
-        rays, R, sph, n_sph, quad, n_quad, joined, k_join, quad_base, t_min,
-        row_out, n_tests);
-  else if (mode == kModeCull)
+void launch(int mode, const FwdArgs& a, cudaStream_t s) {
+  const dim3 grid((unsigned)((a.R + kThreads - 1) / kThreads));
+  if (mode == kModeNone) {
+    closest_hit_none_kernel<kCount><<<grid, kThreads, 0, s>>>(
+        a.rays, a.R, a.sph, a.n_sph, a.quad, a.gen_rows, a.n_gen, a.aab_tab,
+        a.aab_faces, a.n_box, a.joined, a.k_join, a.quad_base, a.t_min,
+        a.row_out, a.n_tests);
+  } else if (mode == kModeCull) {
     closest_hit_cull_kernel<kCount><<<grid, kThreads, 0, s>>>(
-        rays, R, sph, n_sph, quad, n_quad, joined, k_join, quad_base, t_min,
-        accel, n_sph_sub, n_accel, row_out, n_tests);
-  else
+        a.rays, a.R, a.sph, a.n_sph, a.quad, a.n_quad, a.joined, a.k_join,
+        a.quad_base, a.t_min, a.accel, a.n_sph_sub, a.n_accel, a.row_out,
+        a.n_tests);
+  } else {
     closest_hit_bvh_kernel<kCount><<<grid, kThreads, 0, s>>>(
-        rays, R, sph, n_sph, quad, n_quad, joined, k_join, quad_base, t_min,
-        accel, n_sph_sub, n_accel, row_out, n_tests);
+        a.rays, a.R, a.sph, a.n_sph, a.quad, a.n_quad, a.joined, a.k_join,
+        a.quad_base, a.t_min, a.accel, a.n_sph_sub, a.n_accel, a.row_out,
+        a.n_tests);
+  }
 }
 
 }  // namespace
@@ -608,28 +796,31 @@ extern "C" {
 // Launches the kernel of `mode` (0 "none", 1 "cull", 2 "bvh") on `stream`
 // and returns cudaGetLastError() (0 on success).  `accel` is the cull boxes
 // [n_accel, 8] (mode 1) or the heap [2 * n_accel, 6] with n_accel = L
-// (mode 2); unused in mode 0.  Allocates nothing; `row_out` is a [32, R]
-// float32 buffer.  `n_tests`: null, or two counters to which the launch
-// adds the sphere and quad tests it performs (the results do not change).
+// (mode 2); unused in mode 0.  Mode 0 reads `aab_tab` [n_box, 8] (16-byte
+// aligned), `aab_faces` [n_box, 6] and `gen_rows` [n_gen] instead of
+// scanning the n_quad quad rows in order.  Allocates nothing; `row_out` is
+// a [32, R] float32 buffer.  `n_tests`: null, or three
+// counters to which the launch adds the sphere, quad and box slab tests it
+// performs (the results do not change).
 int mort_closest_hit(const float* rays, int R, const float* sph, int n_sph,
                      const float* quad, int n_quad, const float* joined,
                      int k_join, int quad_base, float t_min, int mode,
                      const float* accel, int n_sph_sub, int n_accel,
-                     float* row_out, unsigned long long* n_tests,
-                     void* stream) {
+                     const float* aab_tab, const int* aab_faces,
+                     const int* gen_rows, int n_box, int n_gen,
+                     float* row_out,
+                     unsigned long long* n_tests, void* stream) {
   if (R <= 0) return (int)cudaGetLastError();
-  const dim3 grid((unsigned)((R + kThreads - 1) / kThreads));
   if (mode < kModeNone || mode > kModeBvh) return (int)cudaErrorInvalidValue;
+  const FwdArgs a{rays,      R,         sph,       n_sph,   quad,
+                  n_quad,    joined,    k_join,    quad_base, t_min,
+                  accel,     n_sph_sub, n_accel,   aab_tab, aab_faces,
+                  gen_rows,  n_box,     n_gen,     row_out, n_tests};
   cudaStream_t s = (cudaStream_t)stream;
-  if (n_tests == nullptr) {
-    launch<false>(mode, grid, s, rays, R, sph, n_sph, quad, n_quad, joined,
-                  k_join, quad_base, t_min, accel, n_sph_sub, n_accel,
-                  row_out, n_tests);
-  } else {
-    launch<true>(mode, grid, s, rays, R, sph, n_sph, quad, n_quad, joined,
-                 k_join, quad_base, t_min, accel, n_sph_sub, n_accel, row_out,
-                 n_tests);
-  }
+  if (n_tests == nullptr)
+    launch<false>(mode, a, s);
+  else
+    launch<true>(mode, a, s);
   return (int)cudaGetLastError();
 }
 

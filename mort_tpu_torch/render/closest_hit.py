@@ -31,14 +31,25 @@ Quads use the general plane/window test of ``intersect.quad_pass``.
 Earlier rows win ties (strict ``<``), and a sphere beats a quad on an exact
 tie.  Non-surface and padding rows never win.
 
-Accel modes (``PackedScene.accel``): ``"none"`` tests every primitive;
-``"cull"`` tests the CL-sized sub-clusters of ``cluster_boxes`` behind an
-AABB slab test; ``"bvh"`` traverses the implicit heap ``cluster_tree`` over
-them.  A mode changes which primitives a ray tests, not the function's
+Accel modes (``PackedScene.accel``): ``"none"`` tests every sphere and
+every quad that is not a face of a closed axis-aligned box (``gen_rows``),
+then each box of ``SceneMeta.aab`` behind a slab test (``aab_tab``) and only
+the faces of the boxes a ray enters (``aab_faces``); ``"cull"`` tests the
+CL-sized sub-clusters of ``cluster_boxes`` behind an AABB slab test;
+``"bvh"`` traverses the implicit heap ``cluster_tree`` over them.  A mode changes which primitives a ray tests, not the function's
 value: the kernel keeps the lexicographic minimum over (t, row) and prunes
 only boxes that cannot hold a winner or a tie, so every mode returns the
-result of ``"none"`` bit for bit, and ``closest_hit_reference`` is the
-plain version of all three.  ``auto_accel`` is the JAX package's policy.
+result of the plain scan over every primitive bit for bit, and
+``closest_hit_reference`` is the plain version of all three.
+``auto_accel`` is the JAX package's policy.
+
+The box slab test of ``"none"`` decides only which faces are tested: the
+faces' t is the general quad test's, not the slab's (the JAX package's
+``_aab_best`` reads t off the slab, an ulp away from ``(D - n.o)/(n.d)``).
+A box is entered when its slab interval, widened by ``AAB_SLACK`` times
+(max |o| + max |box corner|), reaches (t_min, bound]: the +-1e-4 pad alone
+is thinner than the rounding of the face test's window at the scene's
+coordinates (PERF.md).
 
 Dispatch: a CUDA tensor always launches the kernel of the packed mode (a
 failure raises; no mode falls back to another); a CPU tensor takes the
@@ -82,8 +93,15 @@ CK = 512         # sphere/quad rows are padded to CK for the sub-clusters
 CL = 128         # primitives per sub-cluster (one AABB)
 STACK = 32       # bvh traversal stack depth: holds a heap of 2^30 leaves
 BIG = 3.0e38     # inverted-box bound
-BOX_COLS = 8     # cull boxes: lo xyz, hi xyz, 0, 0
+BOX_COLS = 8     # cull boxes: lo xyz, hi xyz, 0, 0; aab_tab: lo xyz, hi
+                 # xyz, max |corner|, 0
 NODE_COLS = 6    # bvh nodes: lo xyz, hi xyz
+QUAD_PAD = 1e-4  # pad of a quad's box around its four corners
+# The "none" kernel widens each closed box by AAB_SLACK * (max |o| + max
+# |corner|) before its slab test, so that no face hit the general quad test
+# reports is pruned by the slab test's or the window test's rounding.
+AAB_SLACK = 2.0 ** -16
+N_TESTS = 3      # n_tests counters: sphere tests, quad tests, box slab tests
 
 # The auto accel policy's crossover (the JAX package's BVH_MIN_PRIMS):
 # "none" up to 8192 primitives, "bvh" above.
@@ -116,6 +134,12 @@ class PackedScene:
     accel_tab: torch.Tensor | None = None
     n_sph_sub: int = 0     # sub-clusters that hold sphere rows (the first)
     n_accel: int = 0       # "cull": n_sub; "bvh": L (leaf s is node L + s)
+    # "none": the closed axis-aligned boxes of SceneMeta.aab [n_box,
+    # BOX_COLS], their face rows [n_box, 6] int32 in (lo_x, hi_x, lo_y,
+    # hi_y, lo_z, hi_z) order, and every other quad row [n_gen] int32
+    aab_tab: torch.Tensor | None = None
+    aab_faces: torch.Tensor | None = None
+    gen_rows: torch.Tensor | None = None
 
 
 def _dot3(ax, ay, az, bx, by, bz):
@@ -158,13 +182,39 @@ def cluster_boxes(data: SceneData, meta: SceneMeta) -> torch.Tensor:
                                 torch.maximum(c, c + cv) + r,
                                 data.sph_surface, _n_sph_sub(data, meta) * CL))
     if meta.n_quads:
-        Q, u, v = data.quad_Q, data.quad_u, data.quad_v
-        corners = torch.stack([Q, Q + u, Q + v, Q + u + v], dim=0)
-        n_pad = _round_up(max(Q.shape[0], CK), CK)
-        parts.append(_sub_boxes(corners.amin(dim=0) - 1e-4,
-                                corners.amax(dim=0) + 1e-4,
-                                data.quad_surface, n_pad))
+        n_pad = _round_up(max(data.quad_Q.shape[0], CK), CK)
+        parts.append(_sub_boxes(*quad_bounds(data), data.quad_surface,
+                                n_pad))
     return torch.cat(parts, dim=0).contiguous()
+
+
+def quad_bounds(data: SceneData):
+    """Per-quad (lo [Nq, 3], hi [Nq, 3]): the min and max of its four
+    corners, padded by QUAD_PAD."""
+    Q, u, v = data.quad_Q, data.quad_u, data.quad_v
+    corners = torch.stack([Q, Q + u, Q + v, Q + u + v], dim=0)
+    return corners.amin(dim=0) - QUAD_PAD, corners.amax(dim=0) + QUAD_PAD
+
+
+def box_tables(data: SceneData, meta: SceneMeta):
+    """The closed axis-aligned boxes of ``meta.aab`` (the port of the JAX
+    package's ``pack_aab`` and of the row list of ``pack_quads_general``):
+    (aab_tab [n_box, 8] f32 = lo xyz, hi xyz of the six faces' padded
+    corners (``quad_bounds``), max |lo|, |hi|, 0; aab_faces [n_box, 6]
+    int32 face rows; gen_rows [n_gen] int32, the quad rows below
+    ``meta.n_quads`` that are no box's face, in registry order)."""
+    dev = data.quad_Q.device
+    gen = [r for r in range(meta.n_quads)
+           if not meta.aaq_class or meta.aaq_class[r] != -2]
+    gen_rows = torch.tensor(gen, dtype=torch.int32, device=dev)
+    faces = torch.tensor(meta.aab, dtype=torch.int32,
+                         device=dev).reshape(-1, 6)
+    lo, hi = quad_bounds(data)
+    f = faces.long()
+    lo, hi = lo[f].amin(dim=1), hi[f].amax(dim=1)
+    scale = torch.maximum(lo.abs(), hi.abs()).amax(dim=1, keepdim=True)
+    tab = torch.cat([lo, hi, scale, torch.zeros_like(scale)], dim=1)
+    return tab.contiguous(), faces.contiguous(), gen_rows
 
 
 def cluster_tree(cbox: torch.Tensor) -> torch.Tensor:
@@ -214,10 +264,13 @@ def pack_scene(data: SceneData, meta: SceneMeta, qf: QuadFrames,
         qf.qb[:, None], data.quad_surface.to(torch.float32)[:, None],
     ], dim=1).contiguous()
     accel_tab, n_accel = None, 0
-    if accel != "none":
-        # traversal decisions are not differentiable (the JAX package's
-        # stop_gradient on its boxes and tree)
-        with torch.no_grad():
+    aab_tab = aab_faces = gen_rows = None
+    # traversal decisions are not differentiable (the JAX package's
+    # stop_gradient on its boxes and tree)
+    with torch.no_grad():
+        if accel == "none":
+            aab_tab, aab_faces, gen_rows = box_tables(data, meta)
+        else:
             accel_tab = cluster_boxes(data, meta)
             n_accel = accel_tab.shape[0]
             if accel == "bvh":
@@ -228,7 +281,9 @@ def pack_scene(data: SceneData, meta: SceneMeta, qf: QuadFrames,
                        joined=table.contiguous(),
                        quad_base=int(data.sph_center.shape[0]),
                        accel=accel, accel_tab=accel_tab,
-                       n_sph_sub=_n_sph_sub(data, meta), n_accel=n_accel)
+                       n_sph_sub=_n_sph_sub(data, meta), n_accel=n_accel,
+                       aab_tab=aab_tab, aab_faces=aab_faces,
+                       gen_rows=gen_rows)
 
 
 def stack_rays(ro: V3, rd: V3, time: torch.Tensor) -> torch.Tensor:
@@ -323,9 +378,10 @@ def _check(name, x, dtype, device, ndim, cols=None):
 def _launch(packed: PackedScene, rays: torch.Tensor, t_min: float,
             n_tests: torch.Tensor | None = None):
     """Launch the forward kernel of ``packed.accel``; returns the [32, R]
-    output.  ``n_tests``: an optional int64 [2] card tensor to which the
-    launch adds the sphere and quad tests it performs (rows whose surface
-    flag is 0 are not tests); the results do not depend on it."""
+    output.  ``n_tests``: an optional int64 [3] card tensor to which the
+    launch adds the sphere tests, quad tests and box slab tests it performs
+    (rows whose surface flag is 0 are not tests); the results do not depend
+    on it."""
     from .._build import load_library
 
     dev = rays.device
@@ -356,11 +412,24 @@ def _launch(packed: PackedScene, rays: torch.Tensor, t_min: float,
                 or (n_leaves - n_ss) * CL < packed.n_quad):
             raise ValueError("closest_hit: inconsistent accel table")
         accel_ptr = tab.data_ptr()
+    n_box = n_gen = 0
+    box_ptrs = (0, 0, 0)
+    if accel == "none":
+        tab, faces, gen = packed.aab_tab, packed.aab_faces, packed.gen_rows
+        _check("aab_tab", tab, torch.float32, dev, 2, BOX_COLS)
+        _check("aab_faces", faces, torch.int32, dev, 2, 6)
+        _check("gen_rows", gen, torch.int32, dev, 1)
+        n_box, n_gen = tab.shape[0], gen.shape[0]
+        if (faces.shape[0] != n_box or n_gen + 6 * n_box > packed.n_quad
+                or tab.data_ptr() % 16):
+            raise ValueError("closest_hit: inconsistent box table")
+        box_ptrs = (tab.data_ptr(), faces.data_ptr(), gen.data_ptr())
     count_ptr = 0
     if n_tests is not None:
         _check("n_tests", n_tests, torch.int64, dev, 1)
-        if n_tests.shape[0] != 2:
-            raise ValueError("closest_hit: n_tests must be int64 [2]")
+        if n_tests.shape[0] != N_TESTS:
+            raise ValueError(f"closest_hit: n_tests must be int64 "
+                             f"[{N_TESTS}]")
         count_ptr = n_tests.data_ptr()
     R = rays.shape[1]
     if R >= 2 ** 31 // ROW_K:
@@ -375,8 +444,8 @@ def _launch(packed: PackedScene, rays: torch.Tensor, t_min: float,
             packed.quad.data_ptr(), packed.n_quad,
             packed.joined.data_ptr(), k_join, packed.quad_base,
             ctypes.c_float(t_min), _MODE[accel], accel_ptr,
-            packed.n_sph_sub, packed.n_accel, out.data_ptr(), count_ptr,
-            stream)
+            packed.n_sph_sub, packed.n_accel, *box_ptrs, n_box, n_gen,
+            out.data_ptr(), count_ptr, stream)
     if rc != 0:
         raise RuntimeError(
             f"closest_hit kernel launch failed ({accel}): CUDA error {rc} "

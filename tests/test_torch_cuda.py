@@ -6,6 +6,8 @@ machine without jax it runs without the repository's conftest:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -135,6 +137,44 @@ def test_modes_equal_plain_spread16k(dev, accel):
     _assert_same(_packed(world, dev, accel), *_rand_rays(4096, dev))
 
 
+@pytest.fixture(scope="module")
+def box_world():
+    """final_scene(quick=True) on the card (36 closed boxes): packed "none"
+    tables and chip_smoke.py's rays at the boxes' edges and corners (from
+    the camera, far points, box faces and box insides in turn, 15% with a
+    direction component under 1e-8)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "False)")
+    from chip_smoke import box_bounds, box_edge_rays
+
+    dev = require_cuda()
+    world, cam = sc.final_scene(400, 16, 4, quick=True)
+    data, meta = world.compile()
+    rays = box_edge_rays(*box_bounds(data, meta), cam.lookfrom, 1 << 16, 6)
+    return _packed(world, dev), rays.to(dev)
+
+
+@pytest.mark.parametrize("n", [1, 255, 4096, 1 << 16])
+def test_none_box_cull_equals_plain_on_edge_rays(box_world, n):
+    """The "none" kernel's box path, bit-equal to the plain version on rays
+    that graze box edges and corners, at ragged counts; its counted launch
+    too."""
+    packed, rays = box_world
+    rays = rays[:, :n].contiguous()
+    want = ch.closest_hit_reference(packed, rays)
+    before = ch.launch_count["none"]
+    got = ch._launch(packed, rays, ch.T_MIN)
+    counts = torch.zeros(ch.N_TESTS, dtype=torch.int64, device=rays.device)
+    counted = ch._launch(packed, rays, ch.T_MIN, counts)
+    torch.cuda.synchronize()
+    assert ch.launch_count["none"] == before + 2
+    assert torch.equal(got, want) and torch.equal(counted, want)
+    n_s, n_q, n_b = counts.tolist()
+    surf_q = int((packed.quad[:packed.n_quad, 12] != 0).sum())
+    assert n_s == n * packed.n_sph and n_b == n * 36 and n_q <= n * surf_q
+
+
 def test_wrapper_rejects_bad_inputs(dev):
     packed = _packed(_mixed_world(), dev)
     ro, rd, tme = _rand_rays(64, dev)
@@ -145,6 +185,12 @@ def test_wrapper_rejects_bad_inputs(dev):
         ch._launch(packed, rays[:7].contiguous(), 1e-3)
     with pytest.raises(ValueError):
         ch._launch(packed, rays.t().contiguous().t(), 1e-3)
+    with pytest.raises(ValueError):
+        ch._launch(packed, rays, 1e-3, torch.zeros(2, dtype=torch.int64,
+                                                   device=dev))
+    with pytest.raises(ValueError):
+        ch._launch(dataclasses.replace(packed, gen_rows=torch.cat(
+            [packed.gen_rows, packed.gen_rows])), rays, 1e-3)
 
 
 def test_render_kernel_vs_plain(dev):
