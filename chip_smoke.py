@@ -9,17 +9,20 @@ Phases, one line each or more (any failure raises and exits non-zero):
 2. build: nvcc-compiles csrc/closest_hit.cu (or loads it from the build
    cache) and reports the seconds, each kernel's registers, spills and
    shared memory (``-Xptxas -v``) and the static SASS instruction mix of
-   the "none" kernels (``cuobjdump -sass``);
+   the "none" and "bvh" kernels (``cuobjdump -sass``);
 3. philox: the pinned Philox vector of tests/test_rng.py, on the card;
 4. parity: the CUDA closest-hit kernel in each accel mode ("none", "bvh",
    "cull") against its plain PyTorch version on the same card tensors, on
-   five ray sets — scene 1 (2^18 camera rays and their bounces), scene 9
-   (2^16, its default pool), scene9_edges (2^16 rays aimed at scene 9's
+   eight ray sets — scene 1 (2^18 camera rays and their bounces), scene 9
+   (2^16, its default pool), scene 7 (2^18: the Cornell box, quads only),
+   scene9_edges (2^16 rays aimed at scene 9's
    box edges and corners, from its camera, from far away, from box faces
    and from inside boxes, some with a direction component under 1e-8), a
-   moving sphere/quad scene (2^18) and a 16,384-sphere spread scene
-   (2^18) — t, kind, idx and rows bit-equal, also from a launch that
-   counts its sphere, quad and box slab tests; then every mode and the
+   moving sphere/quad scene (2^18), a 16,384-sphere spread scene (2^18),
+   and 2^16 rays grazing the sphere silhouettes of scene 1 (its r = 1000
+   ground among them) and of the spread scene — t, kind, idx and rows
+   bit-equal, also from a launch that counts its sphere, quad and box or
+   node slab tests (printed a ray); then every mode and the
    plain version timed with CUDA events on each set, one call between two
    events and ten calls back to back, and the share of "none"'s time that
    scene 7's quads take;
@@ -35,8 +38,12 @@ Phases, one line each or more (any failure raises and exits non-zero):
    "cull" kernels and the plain closest hit: the four images agree by the
    image rule;
 8. scenes 2-8 and 10 at the golden config (48 px, 4 spp, depth 8), kernel
-   against plain by the image rule, each with kernel launches; the
-   16,384-sphere scene at a small config, where the auto policy runs "bvh";
+   against plain by the image rule, each with kernel launches; then main
+   path, the 16,384-sphere scene (``spread_spheres``) at its own config
+   (400x225, 4 spp, depth 8, auto accel "bvh"), launch counts reset just
+   before and read just after, rendered once more under ``torch.profiler``
+   for the "bvh" kernel's share of device time; and at 160x90, kernel
+   against plain by the image rule;
 9. backward parity: the CUDA backward kernel (the gradient of the closest
    hit) against its plain version on phase 4's four ray sets with random
    cotangents — d_rays bit-equal, the atomically summed table gradients
@@ -82,6 +89,7 @@ from mort_tpu_torch import (  # noqa: E402
 )
 from mort_tpu_torch import _build, rng  # noqa: E402
 from mort_tpu_torch.device import card_line  # noqa: E402
+from mort_tpu_torch.profile_wavefront import device_times  # noqa: E402
 from mort_tpu_torch.camera import derive_basis, get_rays_soa  # noqa: E402
 from mort_tpu_torch.render import closest_hit as ch  # noqa: E402
 from mort_tpu_torch.render.hitshade import finalize_and_shade  # noqa: E402
@@ -109,7 +117,12 @@ SPHERE_OPS, QUAD_OPS = 34, 12
 # inverted-box check (1), six subtractions and six multiplies, ten min/max
 # and three comparisons
 SLAB_OPS = 36
+# float32 operations of one child slab test of "bvh" (box_enters): six
+# fused multiply-adds (12), six min/max for each axis's order, four for the
+# entry and exit, and four comparisons
+NODE_SLAB_OPS = 26
 R_EDGES = 1 << 16           # rays of the scene9_edges set
+R_SILHOUETTES = 1 << 16     # rays of each silhouettes set
 # device clock cycles (~2.5 ms) that time_ms's sleep holds the card before
 # calls timed back to back, longer than the host takes to queue them
 SLEEP_CYCLES = 5_000_000
@@ -160,26 +173,28 @@ def kernel_label(mangled):
 
 def ptxas_report(name):
     """One line per kernel of ``name`` from its -Xptxas -v report:
-    registers, spills and shared memory."""
+    registers, stack frame, spills and shared memory."""
     lines, cur = [], None
     for line in _build.build_log(name).splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             cur = kernel_label(m.group(1))
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m and cur:
-            spills = f"spills {m.group(1)}/{m.group(2)} B"
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+            spills = (f"stack frame {m.group(1)} B, spills "
+                      f"{m.group(2)}/{m.group(3)} B")
+        m = re.search(r"Used (\d+) registers", line)
         if m and cur:
+            smem = re.search(r"(\d+) bytes smem", line)
             lines.append(f"{cur}: {m.group(1)} registers, {spills}, "
-                         f"{m.group(2)} B shared")
+                         f"{smem.group(1) if smem else 0} B shared")
             cur = None
     return lines
 
 
-SASS_CLASSES = ("LDS", "LDG", "STG", "FADD", "FMUL", "FFMA", "MUFU", "FSETP",
-                "FMNMX", "SHFL", "LDGSTS", "BAR")
+SASS_CLASSES = ("LDS", "LDG", "STG", "LDL", "STL", "FADD", "FMUL", "FFMA",
+                "MUFU", "FSETP", "FMNMX", "SHFL", "LDGSTS", "BAR")
 
 
 def sass_mix(name, kernel="closest_hit_none_kernel<false"):
@@ -247,8 +262,9 @@ class Scene:
 
 
 def camera_bounce_rays(scene, cam, n, dev):
-    """n camera rays of ``cam`` (random pixels and samples) and the n
-    bounces they take (shading as the wavefront does), 2n rays."""
+    """n camera rays of ``cam`` (random pixels and samples) and the bounces
+    they take (shading as the wavefront does): 2n rays, less the bounces
+    that have no direction (a path that ended on a light)."""
     g = torch.Generator().manual_seed(1)
     pix = torch.randint(0, cam.image_width * cam.image_height, (n,),
                         generator=g).to(dev)
@@ -262,7 +278,8 @@ def camera_bounce_rays(scene, cam, n, dev):
     out = finalize_and_shade(scene.data, scene.meta, scene.qf, scene.table,
                              scene.mat_cols, ro, rd, tme, bt, bk, bi, SEED,
                              pix, smp, 0, row_t=row)
-    cat = lambda a, b: torch.cat([a, b])  # noqa: E731
+    keep = torch.isfinite(torch.stack(list(out.new_dir))).all(dim=0)
+    cat = lambda a, b: torch.cat([a, b[keep]])  # noqa: E731
     return (V3(*(cat(a, b) for a, b in zip(ro, out.p))),
             V3(*(cat(a, b) for a, b in zip(rd, out.new_dir))),
             cat(tme, tme))
@@ -379,8 +396,9 @@ def bound_parts(packed, R, n_tests):
             tabs.append(t)
     n_bytes = R * (8 + ch.ROW_K) * 4 + sum(t.numel() * 4 for t in tabs)
     n_s, n_q, n_b = n_tests
+    slab = NODE_SLAB_OPS if packed.accel == "bvh" else SLAB_OPS
     return (n_bytes / HBM_BYTES_PER_S * 1e3,
-            (n_s * SPHERE_OPS + n_q * QUAD_OPS + n_b * SLAB_OPS)
+            (n_s * SPHERE_OPS + n_q * QUAD_OPS + n_b * slab)
             / FP32_OPS_PER_S * 1e3)
 
 
@@ -455,19 +473,69 @@ def box_edge_rays(lo, hi, eye, n, seed, origins=ORIGINS, tiny=0.15):
     return rays
 
 
-def quad_share(dev, card):
+def silhouette_rays(data, meta, eye, n, seed):
+    """[8, n] float32 rays on the CPU that graze the silhouettes of the
+    surface spheres of ``data`` (the largest, scene 1's r = 1000 ground,
+    every fourth ray) at the ray's time.  Half start at ``eye`` and aim at
+    the sphere's tangent cone from there; half lie along a line tangent to
+    the sphere at a point near one of its six poles (where the sphere
+    touches its box) or anywhere on it, from an origin 1e-2..3e3 back along
+    that line.  The distance of closest approach is r (1 + delta), delta
+    log-uniform in 1e-9..1e-2 of either sign."""
+    g = np.random.RandomState(seed)
+    ns = meta.n_spheres
+    c, cv, r = (x[:ns].double().cpu().numpy() for x in (
+        data.sph_center, data.sph_cvec, data.sph_radius))
+    b = g.choice(np.flatnonzero(data.sph_surface[:ns].cpu().numpy()), n)
+    b[::4] = np.argmax(np.abs(r))
+    tm = g.rand(n)
+    cen, rad = c[b] + tm[:, None] * cv[b], np.abs(r[b])
+    delta = np.exp(g.uniform(np.log(1e-9), np.log(1e-2), n)) \
+        * g.choice([-1.0, 1.0], n)
+
+    def unit(x):
+        return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+    def perp(w):
+        """A random unit vector perpendicular to each row of w."""
+        p = g.randn(len(w), 3)
+        return unit(p - (p * w).sum(1, keepdims=True) * w)
+
+    # the normal at the grazing point: near a pole, or anywhere
+    pole = np.eye(3)[g.randint(0, 3, n)] * g.choice([-1.0, 1.0], (n, 1))
+    normal = unit(np.where(g.rand(n, 1) < 0.5, pole + 1e-3 * g.randn(n, 3),
+                           g.randn(n, 3)))
+    tangent = perp(normal)
+    back = np.exp(g.uniform(np.log(1e-2), np.log(3e3), n))[:, None]
+    o = cen + normal * (rad * (1 + delta))[:, None] - tangent * back
+    d = tangent * back
+    # from the eye: aim past the centre at the tangent cone's distance
+    w = cen - np.asarray(eye, np.float64)
+    dist = np.linalg.norm(w, axis=1)
+    cone = (dist > rad * 1.001) & (np.arange(n) % 2 == 0)
+    s = rad * (1 + delta) * dist / np.sqrt(np.maximum(dist ** 2 - rad ** 2,
+                                                      1e-30))
+    aim = cen + perp(unit(w)) * s[:, None]
+    o[cone] = np.asarray(eye, np.float64)
+    d[cone] = (aim - o)[cone]
+    rays = torch.zeros(8, n)
+    rays[0:3] = torch.from_numpy(o.astype(np.float32)).T
+    rays[3:6] = torch.from_numpy(d.astype(np.float32)).T
+    rays[6] = torch.from_numpy(tm.astype(np.float32))
+    return rays
+
+
+def quad_share(s7, rays, card):
     """The share of "none"'s time that scene 7's (the Cornell box's) quads
     take on its camera and bounce rays, and the share of its axis-aligned
     quads (what the JAX package's _aaq_group_best takes): the kernel timed
     with every quad, without the axis-aligned ones and without any (the
     rows the kernel scans cut, so only these timings, not a result)."""
-    world7, cam7 = sc.build_scene(7)
-    s7 = Scene(world7, dev)
-    rays = ch.stack_rays(*camera_bounce_rays(s7, cam7, R_PARITY // 2, dev))
     p = s7.packed["none"]
     general = [r for r in p.gen_rows.tolist() if s7.meta.aaq_class[r] == 9]
     cuts = {"all": p.gen_rows,
-            "general": torch.tensor(general, dtype=torch.int32, device=dev),
+            "general": torch.tensor(general, dtype=torch.int32,
+                                    device=rays.device),
             "none": p.gen_rows[:0]}
     ms = {k: time_ms(lambda: ch._launch(dataclasses.replace(p, gen_rows=g),
                                         rays, T_MIN), calls=10)
@@ -488,13 +556,17 @@ def parity_and_timing(dev, card):
     world1, cam1 = sc.random_spheres()
     world9, cam9 = sc.final_scene(400, 250, 4)
     world16, cam16 = sc.spread_spheres()
+    world7, cam7 = sc.build_scene(7)
     s1, s9, s16 = Scene(world1, dev), Scene(world9, dev), Scene(world16, dev)
+    s7 = Scene(world7, dev)
     assert ch.auto_accel(s16.meta.n_spheres) == "bvh"
     stack = ch.stack_rays
     sets = {
         "scene1": (s1, stack(*camera_bounce_rays(s1, cam1, R_PARITY // 2,
                                                  dev))),
         "scene9": (s9, stack(*camera_bounce_rays(s9, cam9, R_SCENE9 // 2,
+                                                 dev))),
+        "scene7": (s7, stack(*camera_bounce_rays(s7, cam7, R_PARITY // 2,
                                                  dev))),
         "scene9_edges": (s9, box_edge_rays(*box_bounds(s9.data, s9.meta),
                                            cam9.lookfrom, R_EDGES, 11
@@ -503,6 +575,10 @@ def parity_and_timing(dev, card):
                          stack(*random_rays(R_PARITY, dev))),
         "spread16k": (s16, stack(*camera_bounce_rays(s16, cam16,
                                                      R_PARITY // 2, dev))),
+        "scene1_silhouettes": (s1, silhouette_rays(
+            s1.data, s1.meta, cam1.lookfrom, R_SILHOUETTES, 12).to(dev)),
+        "spread16k_silhouettes": (s16, silhouette_rays(
+            s16.data, s16.meta, cam16.lookfrom, R_SILHOUETTES, 13).to(dev)),
     }
     err = dict.fromkeys(ch.ACCELS, 0.0)
     times, b2b, tests, out_sets = {}, {}, {}, {}
@@ -531,15 +607,16 @@ def parity_and_timing(dev, card):
             n_s, n_q, n_b = tests[name][m]
             parts.append(f"{m} {row[m]:.4f} ms, back to back "
                          f"{b2b[name][m]:.4f} ms (operations bound "
-                         f"{t_ops:.4f} ms for {n_s / R:.1f} sphere + "
-                         f"{n_q / R:.1f} quad + {n_b / R:.1f} box slab tests "
-                         f"a ray, bytes bound {t_bytes:.4f} ms)")
+                         f"{t_ops:.4f} ms for {n_s / R:.2f} sphere + "
+                         f"{n_q / R:.2f} quad + {n_b / R:.1f} "
+                         f"{'node' if m == 'bvh' else 'box'} slab tests a "
+                         f"ray, bytes bound {t_bytes:.4f} ms)")
         brute = bound_parts(scene.packed["none"], R,
                             brute_force_tests(scene.packed["none"], R))[1]
         log(f"timing {name} R={R}: " + ", ".join(parts)
             + f", plain {plain:.4f} ms; none brute-force operations bound "
             f"{brute:.4f} ms | {card}")
-    quad_share(dev, card)
+    quad_share(s7, sets["scene7"][1], card)
     out = {}
     for mode in ch.ACCELS:
         b, by = bound_ms(s9.packed[mode], R_SCENE9, tests["scene9"][mode])
@@ -547,7 +624,9 @@ def parity_and_timing(dev, card):
                      "ms_back_to_back": b2b["scene9"][mode],
                      "plain_ms": times["scene9"]["plain"], "bound_ms": b,
                      "bound_by": by}
-    del out_sets["scene9_edges"]
+    for name in ("scene7", "scene9_edges", "scene1_silhouettes",
+                 "spread16k_silhouettes"):
+        del out_sets[name]
     return out, out_sets
 
 
@@ -769,9 +848,11 @@ def render_pair(data, meta, cam, dev):
     return a.cpu().numpy(), b.cpu().numpy(), counts
 
 
-def main_path(name, world, cam, dev, card):
+def main_path(name, world, cam, dev, card, profiled=False):
     """Drive ``render_wavefront`` once at ``cam``'s config; returns the
-    launch counts per mode."""
+    launch counts per mode.  ``profiled``: then render the same frame once
+    more under ``torch.profiler`` and print the closest-hit kernels' share
+    of device time and the device's idle share of the first run's wall."""
     data, meta = world.compile()
     spp = cam.sqrt_spp ** 2
     n_paths = cam.image_width * cam.image_height * spp
@@ -794,6 +875,20 @@ def main_path(name, world, cam, dev, card):
         f"occupancy {segs / stats['slots_executed']:.4f}, "
         f"{stats['iterations']} rounds, kernel launches {counts}, "
         f"image mean {mean:.5f} | {card}")
+    if profiled:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            render_wavefront(data, meta, cam, dev, seed=SEED)
+            torch.cuda.synchronize()
+        _, busy_us, n_launch, modes = device_times(prof)
+        assert busy_us > 0, f"{name}: the profiler saw no device time"
+        log(f"main path {name} profiled: device busy {busy_us / 1e6:.4f} s "
+            f"(idle share {1 - busy_us / 1e6 / wall:.4f} of the unprofiled "
+            f"wall), {n_launch} device kernels; closest-hit share of device "
+            f"time " + ", ".join(f"{m} {us / busy_us:.4f} ({us / 1e3:.3f} "
+                                 f"ms)" for m, us in modes.items() if us)
+            + f" | {card}")
     return counts
 
 
@@ -819,9 +914,11 @@ def main():
         f" in {build_s:.2f} s -> {_build.library_path('closest_hit')}")
     for line in ptxas_report("closest_hit"):
         log(f"ptxas {line}")
-    for (label, part), counts in sass_mix("closest_hit").items():
-        log(f"sass {label} {part}: " + ", ".join(
-            f"{k} {v}" for k, v in counts.items() if v))
+    for kernel in ("closest_hit_none_kernel<false",
+                   "closest_hit_bvh_kernel<false"):
+        for (label, part), counts in sass_mix("closest_hit", kernel).items():
+            log(f"sass {label} {part}: " + ", ".join(
+                f"{k} {v}" for k, v in counts.items() if v))
 
     # ---- 3. philox ----
     u = rng.uniform4(SEED, torch.tensor([123], device=dev),
@@ -887,6 +984,9 @@ def main():
             f"vs plain frac_within={frac:.5f}, mean_abs={mdiff:.3e}, "
             f"image mean {float(a.mean()):.4f}")
     world16, cam16 = sc.spread_spheres()
+    counts16m = main_path("spread16k", world16, cam16, dev, card,
+                          profiled=True)
+    assert counts16m["bvh"] > 0, "16k spheres: the auto policy ran no bvh"
     data16, meta16 = world16.compile()
     small16 = cam16.replace(image_width=160, image_height=90, sqrt_spp=2,
                             bounce_limit=4)
@@ -912,14 +1012,14 @@ def main():
     # ---- 12. the Cornell train step, card against CPU ----
     train_step_card_vs_cpu(dev)
 
-    launches = {"none": counts9["none"],
-                "bvh": four_counts["bvh"] + counts16["bvh"],
+    launches = {"none": counts9["none"], "bvh": counts16m["bvh"],
                 "cull": four_counts["cull"], "bwd": counts10["bwd"]}
     log(f"launches: none {counts9['none']} (scene 9 main path; scene 1 main "
-        f"path {counts1['none']}), bvh {launches['bvh']} (scene 9 four-way "
-        f"{four_counts['bvh']} + spread16k {counts16['bvh']}), cull "
-        f"{launches['cull']} (scene 9 four-way), bwd {launches['bwd']} "
-        f"(the train step main path, {len(GRAD_SEEDS)} steps)")
+        f"path {counts1['none']}), bvh {launches['bvh']} (spread16k main "
+        f"path; scene 9 four-way {four_counts['bvh']}, spread16k 160x90 "
+        f"{counts16['bvh']}), cull {launches['cull']} (scene 9 four-way), "
+        f"bwd {launches['bwd']} (the train step main path, "
+        f"{len(GRAD_SEEDS)} steps)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     names = {"none": "closest_hit", "bvh": "closest_hit_bvh",
              "cull": "closest_hit_cull", "bwd": "closest_hit_bwd"}

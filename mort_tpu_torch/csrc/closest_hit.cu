@@ -9,9 +9,10 @@
 //           the general-quad scan _quad_gen_best, the merge and the row
 //           emit _emit_row (its notes are at the kernel, below);
 //   "cull"  the same tests, one CL-sized sub-cluster at a time, each behind
-//           an AABB slab test (cluster_boxes);
-//   "bvh"   traversal of the implicit heap over those sub-clusters
-//           (cluster_tree), with a per-ray stack of kStack nodes;
+//           an AABB slab test (cluster_boxes, widened: box_enters);
+//   "bvh"   traversal of an implicit heap whose leaves are single rows (the
+//           JAX package's heap cluster_tree had 128-row leaves; notes at
+//           the kernel, below);
 //
 // and the gradient of the closest hit, closest_hit_bwd_kernel (the
 // _closest_hit_vjp bwd; its notes are at the kernel, below).
@@ -20,14 +21,15 @@
 // limb-packed bf16 MXU dots, gathered the winner's row with a one-hot
 // matmul, and traversed with one scalar stack per 1024-ray tile; all three
 // existed only to serve the TPU.  Here they are plain float32 arithmetic,
-// one indexed load, and a stack per ray that visits children near-first
-// along the ray's own direction.
+// one indexed load, and a traversal per ray that visits children near-first
+// by their slab entry.
 //
 // What bounds "none" on an H100 is float32 issue (its notes, below).
 // "cull" and "bvh" (one thread per ray) read each visited
-// sub-cluster's records from global memory (__ldg, L1/L2-resident for
-// scenes of a few thousand primitives): their work is the tests a ray's
-// pruning leaves it, and divergence between the rays of a warp.
+// sub-cluster's, node's or leaf's records from global memory (__ldg,
+// L1/L2-resident for scenes of a few thousand primitives): their work is
+// the tests a ray's pruning leaves it, and divergence between the rays of
+// a warp.
 //
 // Arithmetic: every add, subtract, multiply, divide and square root of a
 // primitive test is an explicitly rounded intrinsic (__fadd_rn, __fmul_rn,
@@ -66,10 +68,8 @@ constexpr int kRowIdx = 29;
 constexpr int kSphere = 1;
 constexpr int kQuad = 2;
 constexpr int kCL = 128;        // primitives per sub-cluster (closest_hit.CL)
-constexpr int kStack = 32;      // bvh stack depth (closest_hit.STACK)
 constexpr int kBoxCols = 8;     // cull boxes: lo xyz, hi xyz, 0, 0; closed
                                 // boxes: lo xyz, hi xyz, max |corner|, 0
-constexpr int kNodeCols = 6;    // bvh nodes: lo xyz, hi xyz
 constexpr float kTiny = 1e-30f; // slab substitute for a zero direction
 constexpr int kModeNone = 0, kModeCull = 1, kModeBvh = 2;
 
@@ -231,13 +231,54 @@ __device__ __forceinline__ bool slab_enters(const Ray& r, float irx,
   return lo <= hi && hi > r.t_min && lo <= bound;
 }
 
-// slab_enters on the box at `b` (lo xyz, hi xyz) in global memory.
-__device__ __forceinline__ bool box_reachable(const Ray& r, float irx,
-                                              float iry, float irz,
-                                              const float* __restrict__ b,
-                                              float bound) {
-  return slab_enters(r, irx, iry, irz, __ldg(b), __ldg(b + 1), __ldg(b + 2),
-                     __ldg(b + 3), __ldg(b + 4), __ldg(b + 5), bound);
+// The slab test of "cull" and "bvh" (closest_hit.py: AAB_SLACK, SPHERE_ERR,
+// sphere_pad).  Their boxes are widened so that every hit the sphere and
+// quad tests report lies inside the boxes on its path: the expanded sphere
+// quadratic cancels near silhouettes and, from far origins, reports hits
+// several radii off a small sphere, far outside its box; a quad's +-1e-4
+// pad is thinner than the rounding of its window test near coordinate
+// 1000.  The pad of a box is kAabSlack (max |o| + its largest |coordinate|)
+// plus, for a box of spheres, sphere_pad of that sum and their smallest
+// radius; being concave in the sum it splits into a part per box, built
+// into the table, and a part per ray, added here (from the scene's smallest
+// sphere radius, which the table carries).
+constexpr float kAabSlack = 1.52587890625e-05f;      // 2^-16, AAB_SLACK
+constexpr float kSphereErr2 = 7.62939453125e-06f;    // 2 * 2^-18, SPHERE_ERR
+
+// The per-ray terms of the slab tests: the reciprocal direction and the t
+// offsets of the planes widened by the ray's part of the pad m,
+// lo * ir - (o + m) * ir and hi * ir - (o - m) * ir.
+struct Slab {
+  float irx, iry, irz, lox, loy, loz, hix, hiy, hiz;
+};
+
+__device__ __forceinline__ Slab make_slab(const Ray& r, float r_min) {
+  const float s = fmaxf(fmaxf(fabsf(r.ox), fabsf(r.oy)), fabsf(r.oz));
+  const float x = kSphereErr2 * s * s;
+  // closest_hit.sphere_pad; 0 where r_min is BIG (no sphere)
+  const float m = s * kAabSlack + x / (sqrtf(r_min * r_min + x) + r_min);
+  Slab b;
+  b.irx = slab_inv(r.dx); b.iry = slab_inv(r.dy); b.irz = slab_inv(r.dz);
+  b.lox = (r.ox + m) * b.irx; b.hix = (r.ox - m) * b.irx;
+  b.loy = (r.oy + m) * b.iry; b.hiy = (r.oy - m) * b.iry;
+  b.loz = (r.oz + m) * b.irz; b.hiz = (r.oz - m) * b.irz;
+  return b;
+}
+
+// Whether the ray enters the box [lx, hx] x [ly, hy] x [lz, hz], widened by
+// the ray's part of the pad, in (t_min, bound]; `t_in` is its slab entry.
+// An inverted box never.
+__device__ __forceinline__ bool box_enters(const Slab& b, float lx, float hx,
+                                           float ly, float hy, float lz,
+                                           float hz, float t_min, float bound,
+                                           float& t_in) {
+  const float x0 = fmaf(lx, b.irx, -b.lox), x1 = fmaf(hx, b.irx, -b.hix);
+  const float y0 = fmaf(ly, b.iry, -b.loy), y1 = fmaf(hy, b.iry, -b.hiy);
+  const float z0 = fmaf(lz, b.irz, -b.loz), z1 = fmaf(hz, b.irz, -b.hiz);
+  t_in = fmaxf(fmaxf(fminf(x0, x1), fminf(y0, y1)), fminf(z0, z1));
+  const float t_out =
+      fminf(fminf(fmaxf(x0, x1), fmaxf(y0, y1)), fmaxf(z0, z1));
+  return lx <= hx && t_in <= t_out && t_out > t_min && t_in <= bound;
 }
 
 // ---- "none" ----
@@ -284,7 +325,6 @@ constexpr int kSphF = 12;          // staged sphere: kSphCols, 2 pad
 constexpr int kQuadF = 16;         // staged quad: kQuadCols, row id, 2 pad
 constexpr int kTile = 256;         // spheres or quads per tile
 constexpr int kBoxTile = kStage / kBoxCols;   // 512 boxes per tile
-constexpr float kAabSlack = 1.52587890625e-05f;   // 2^-16, closest_hit.py
 
 struct Rec12 {
   float v[12];
@@ -492,7 +532,9 @@ __device__ __forceinline__ void test_leaf(
   }
 }
 
-// "cull": every sub-cluster in order (spheres first), each behind its box.
+// "cull": every sub-cluster in order (spheres first), each behind its
+// widened box (closest_hit.cull_boxes: cluster_boxes widened by its pad,
+// the scene's smallest sphere radius in column 6).
 template <bool kCount>
 __global__ void __launch_bounds__(kThreads)
 closest_hit_cull_kernel(const float* __restrict__ rays, int R,
@@ -506,7 +548,7 @@ closest_hit_cull_kernel(const float* __restrict__ rays, int R,
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= R) return;
   const Ray r = load_ray(rays, R, i, t_min);
-  const float irx = slab_inv(r.dx), iry = slab_inv(r.dy), irz = slab_inv(r.dz);
+  const Slab b = make_slab(r, __ldg(boxes + 6));
   const float rcp_a = __frcp_rn(r.a);
   float best = CUDART_INF_F, qt = CUDART_INF_F;
   int best_i = 0, qi = 0, n_s = 0, n_q = 0;
@@ -514,7 +556,10 @@ closest_hit_cull_kernel(const float* __restrict__ rays, int R,
     // spheres prune against their own best; quads (after every sphere)
     // against min(quad best, sphere best)
     const float bound = fminf(mul(best, rcp_a), qt);
-    if (box_reachable(r, irx, iry, irz, boxes + (size_t)s * kBoxCols, bound))
+    const float* p = boxes + (size_t)s * kBoxCols;
+    float t_in;
+    if (box_enters(b, __ldg(p), __ldg(p + 3), __ldg(p + 1), __ldg(p + 4),
+                   __ldg(p + 2), __ldg(p + 5), t_min, bound, t_in))
       test_leaf<kCount>(r, s, sph, n_sph, quad, n_quad, n_sph_sub, best,
                         best_i, qt, qi, n_s, n_q);
   }
@@ -522,17 +567,33 @@ closest_hit_cull_kernel(const float* __restrict__ rays, int R,
   emit(r, best, best_i, qt, qi, joined, k_join, quad_base, R, i, row_out);
 }
 
-// Distance key of node k's box centre along the ray (near-first order).
-__device__ __forceinline__ float node_key(const Ray& r,
-                                          const float* __restrict__ b) {
-  const float cx = 0.5f * (__ldg(b) + __ldg(b + 3));
-  const float cy = 0.5f * (__ldg(b + 1) + __ldg(b + 4));
-  const float cz = 0.5f * (__ldg(b + 2) + __ldg(b + 5));
-  return (cx - r.ox) * r.dx + (cy - r.oy) * r.dy + (cz - r.oz) * r.dz;
-}
-
-// "bvh": the implicit heap (node 1 the root, children 2k and 2k+1, leaf
-// sub-cluster s at node L + s), one stack per ray.
+// ---- "bvh" ----
+//
+// Replaces _make_kernel's "bvh" branch (the walk over cluster_tree's heap of
+// 128-row sub-clusters).  On the TPU a 128-lane leaf was one vector step;
+// here one thread runs one ray, and a warp pays a leaf's tests whenever one
+// of its lanes enters it, so a leaf is one row (closest_hit.bvh_tree): the
+// implicit heap over the rows, sphere rows first (leaf s < n_sph is sphere
+// row s), then quad rows, each kind in the scene builder's Morton order.
+// Leaves of 1, 2 and 4 rows were timed; 1 was the fastest on every ray set
+// (PERF.md).
+//
+// Node k (a row of 12 floats, 16-byte aligned) holds the widened boxes of
+// both children, axis by axis, so a visit is three float4 loads through the
+// read-only path and two slab tests.  The ray goes on into the entered
+// child with the smaller slab entry; if both were entered it marks the
+// node's depth in `trail`, a 32-bit stack of one bit a level.  At a leaf or
+// a dead end it resumes at the sibling of the node it took at the deepest
+// marked depth (the heap's indices give it: node >> (depth - level - 1),
+// xor 1), so the traversal state is four registers, with nothing in local
+// memory.  A resumed child is not slab-tested again: its own two children
+// are, against the bound of that moment.  Node row 0 carries the scene's
+// smallest sphere radius for the per-ray part of the pad.
+//
+// Its work on camera and bounce rays: ~6.5 visits and ~0.4 sphere tests a
+// ray on spread16k, ~37 visits and ~2 row tests on scene 9 (PERF.md); its
+// time on spread16k is ~7x the bytes bound, and how node-load latency and
+// divergence share that is not measured.
 template <bool kCount>
 __global__ void __launch_bounds__(kThreads)
 closest_hit_bvh_kernel(const float* __restrict__ rays, int R,
@@ -540,38 +601,56 @@ closest_hit_bvh_kernel(const float* __restrict__ rays, int R,
                        const float* __restrict__ quad, int n_quad,
                        const float* __restrict__ joined, int k_join,
                        int quad_base, float t_min,
-                       const float* __restrict__ tree, int n_sph_sub, int L,
+                       const float4* __restrict__ nodes, int L,
                        float* __restrict__ row_out,
                        unsigned long long* __restrict__ n_tests) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= R) return;
   const Ray r = load_ray(rays, R, i, t_min);
-  const float irx = slab_inv(r.dx), iry = slab_inv(r.dy), irz = slab_inv(r.dz);
+  const Slab b = make_slab(r, __ldg(&nodes[0].x));
   const float rcp_a = __frcp_rn(r.a);
   float best = CUDART_INF_F, qt = CUDART_INF_F;
-  int best_i = 0, qi = 0, n_s = 0, n_q = 0;
-  int stack[kStack];
-  int sp = 0;
-  stack[sp++] = 1;
-  while (sp > 0) {
-    const int node = stack[--sp];
-    const float bound = fminf(mul(best, rcp_a), qt);
-    if (!box_reachable(r, irx, iry, irz, tree + (size_t)node * kNodeCols,
-                       bound))
-      continue;
-    if (node >= L) {
-      test_leaf<kCount>(r, node - L, sph, n_sph, quad, n_quad, n_sph_sub,
-                        best, best_i, qt, qi, n_s, n_q);
+  int best_i = 0, qi = 0, n_s = 0, n_q = 0, n_b = 0;
+  unsigned trail = 0u;   // bit d: the other child at depth d is owed
+  int node = 1, depth = 0;
+  for (;;) {
+    if (node < L) {
+      const float4* p = nodes + 3 * node;
+      const float4 x = __ldg(p), y = __ldg(p + 1), z = __ldg(p + 2);
+      const float bound = fminf(mul(best, rcp_a), qt);
+      float t0, t1;
+      const bool e0 =
+          box_enters(b, x.x, x.y, y.x, y.y, z.x, z.y, t_min, bound, t0);
+      const bool e1 =
+          box_enters(b, x.z, x.w, y.z, y.w, z.z, z.w, t_min, bound, t1);
+      if constexpr (kCount) n_b += 2;
+      if (e0 || e1) {
+        if (e0 && e1) trail |= 1u << depth;
+        node = 2 * node + (e0 && e1 ? (t1 < t0) : e1);
+        ++depth;
+        continue;
+      }
     } else {
-      const int c0 = 2 * node, c1 = c0 + 1;
-      const bool c0_first =
-          node_key(r, tree + (size_t)c0 * kNodeCols) <=
-          node_key(r, tree + (size_t)c1 * kNodeCols);
-      stack[sp++] = c0_first ? c1 : c0;   // far
-      stack[sp++] = c0_first ? c0 : c1;   // near, popped first
+      // an entered leaf is a real row (padding leaves are inverted)
+      const int j = node - L;
+      if (j < n_sph) {
+        const bool tested = sphere_test(r, RowRec{sph + (size_t)j * kSphCols},
+                                        j, best, best_i);
+        if constexpr (kCount) n_s += tested;
+      } else {
+        const int q = j - n_sph;
+        const bool tested =
+            quad_test(r, RowRec{quad + (size_t)q * kQuadCols}, q, qt, qi);
+        if constexpr (kCount) n_q += tested;
+      }
     }
+    if (trail == 0u) break;
+    const int level = 31 - __clz(trail);   // the deepest owed child
+    trail ^= 1u << level;
+    node = (node >> (depth - level - 1)) ^ 1;
+    depth = level + 1;
   }
-  if constexpr (kCount) add_counts(n_tests, n_s, n_q);
+  if constexpr (kCount) add_counts(n_tests, n_s, n_q, n_b);
   emit(r, best, best_i, qt, qi, joined, k_join, quad_base, R, i, row_out);
 }
 
@@ -784,8 +863,8 @@ void launch(int mode, const FwdArgs& a, cudaStream_t s) {
   } else {
     closest_hit_bvh_kernel<kCount><<<grid, kThreads, 0, s>>>(
         a.rays, a.R, a.sph, a.n_sph, a.quad, a.n_quad, a.joined, a.k_join,
-        a.quad_base, a.t_min, a.accel, a.n_sph_sub, a.n_accel, a.row_out,
-        a.n_tests);
+        a.quad_base, a.t_min, reinterpret_cast<const float4*>(a.accel),
+        a.n_accel, a.row_out, a.n_tests);
   }
 }
 
@@ -795,13 +874,14 @@ extern "C" {
 
 // Launches the kernel of `mode` (0 "none", 1 "cull", 2 "bvh") on `stream`
 // and returns cudaGetLastError() (0 on success).  `accel` is the cull boxes
-// [n_accel, 8] (mode 1) or the heap [2 * n_accel, 6] with n_accel = L
-// (mode 2); unused in mode 0.  Mode 0 reads `aab_tab` [n_box, 8] (16-byte
-// aligned), `aab_faces` [n_box, 6] and `gen_rows` [n_gen] instead of
-// scanning the n_quad quad rows in order.  Allocates nothing; `row_out` is
-// a [32, R] float32 buffer.  `n_tests`: null, or three
-// counters to which the launch adds the sphere, quad and box slab tests it
-// performs (the results do not change).
+// [n_accel, 8] whose first `n_sph_sub` hold sphere rows (mode 1), or the
+// bvh nodes [n_accel, 12] with n_accel = L, a power of two up to 2^30,
+// 16-byte aligned (mode 2); unused in mode 0.  Mode 0 reads `aab_tab`
+// [n_box, 8] (16-byte aligned), `aab_faces` [n_box, 6] and `gen_rows`
+// [n_gen] instead of scanning the n_quad quad rows in order.  Allocates
+// nothing; `row_out` is a [32, R] float32 buffer.  `n_tests`: null, or three
+// counters to which the launch adds the sphere, quad and box (modes 0 and
+// 2) slab tests it performs (the results do not change).
 int mort_closest_hit(const float* rays, int R, const float* sph, int n_sph,
                      const float* quad, int n_quad, const float* joined,
                      int k_join, int quad_base, float t_min, int mode,

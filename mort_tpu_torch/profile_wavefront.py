@@ -1,14 +1,18 @@
 """Where the wavefront's time goes on the card: one torch.profiler window.
 
-    python -m mort_tpu_torch.profile_wavefront [--scene {1..10}] [--tasks N]
+    python -m mort_tpu_torch.profile_wavefront [--scene {1..10,spread16k}]
+                                               [--tasks N]
 
 Renders a reference scene at its code-true config (scene 1, the default:
-1200x675, 100 spp, depth 20; scene 9: 400x400, 250 spp, depth 4) over the
-first ``--tasks`` chunk-tasks, after a warm-up span: once plainly for the
-wall time, then once under ``torch.profiler`` (CPU + CUDA).  Prints the
-device time by kernel, the closest-hit kernel's share of it, the device's
-busy and idle shares of the unprofiled wall time, and device kernels per
-bounce step, beside the card's name and power limit.  Needs a CUDA card.
+1200x675, 100 spp, depth 20; scene 9: 400x400, 250 spp, depth 4), or the
+16,384-sphere ``spread16k`` at its own (400x225, 4 spp, depth 8, auto accel
+"bvh"), over the first ``--tasks`` chunk-tasks (tasks past a frame's last
+are further sample chunks: spread16k's frame is 90,000 tasks), after a
+warm-up span: once plainly for the wall time, then once under
+``torch.profiler`` (CPU + CUDA).  Prints the device time by kernel, the
+closest-hit kernel's share of it by accel mode, the device's busy and idle
+shares of the unprofiled wall time, and device kernels per bounce step,
+beside the card's name and power limit.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -33,16 +37,37 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def device_times(prof):
+    """(device kernels, busy us, launches, closest-hit us by accel mode)
+    of a finished ``torch.profiler`` window."""
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    modes = {m: sum(_device_us(e) for e in kernels
+                    if f"closest_hit_{m}_kernel" in e.key)
+             for m in ch.ACCELS}
+    return (kernels, sum(_device_us(e) for e in kernels),
+            sum(e.count for e in kernels), modes)
+
+
+def build(scene):
+    """(world, camera) of ``--scene``: a reference scene's number or
+    "spread16k"."""
+    if scene == "spread16k":
+        return sc.spread_spheres()
+    return sc.build_scene(int(scene))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", type=int, default=1, choices=range(1, 11))
+    ap.add_argument("--scene", default="1",
+                    choices=[str(i) for i in range(1, 11)] + ["spread16k"])
     ap.add_argument("--tasks", type=int, default=1 << 20,
                     help="chunk-tasks to render (up to 8 paths each)")
     args = ap.parse_args(argv)
 
     dev = require_cuda()
     card = card_line()
-    world, cam = sc.build_scene(args.scene)
+    world, cam = build(args.scene)
     data, meta = world.compile()
     kw = dict(seed=69420, task_range=(0, args.tasks), return_stats=True)
     render_wavefront(data, meta, cam, dev, seed=1, task_range=(0, 4096))
@@ -60,13 +85,10 @@ def main(argv=None):
                              ProfilerActivity.CUDA]) as prof:
         render_wavefront(data, meta, cam, dev, **kw)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
-    busy_us = sum(_device_us(e) for e in kernels)
-    n_launch = sum(e.count for e in kernels)
-    ch_us = sum(_device_us(e) for e in kernels if "closest_hit" in e.key)
+    kernels, busy_us, n_launch, modes = device_times(prof)
+    ch_us = sum(modes.values())
 
-    print(f"scene{args.scene} {cam.image_width}x{cam.image_height} @ "
+    print(f"scene {args.scene} {cam.image_width}x{cam.image_height} @ "
           f"{cam.sqrt_spp ** 2}spp depth {cam.bounce_limit}, tasks "
           f"[0, {args.tasks}): wall {wall:.4f} s "
           f"unprofiled, {stats['iterations']} rounds, {steps} bounce steps, "
@@ -77,7 +99,9 @@ def main(argv=None):
           f"(idle share {1 - busy_us / 1e6 / wall:.4f}); "
           f"{n_launch} kernel launches = {n_launch / max(steps, 1):.1f} per "
           f"bounce step; closest_hit {ch_us / 1e6:.4f} s = "
-          f"{ch_us / max(busy_us, 1):.4f} of device time")
+          f"{ch_us / max(busy_us, 1):.4f} of device time ("
+          + ", ".join(f"{m} {us / max(busy_us, 1):.4f}"
+                      for m, us in modes.items() if us) + ")")
     print("top kernels by device time (s, launches, name):")
     for e in sorted(kernels, key=_device_us, reverse=True)[:20]:
         print(f"  {_device_us(e) / 1e6:9.4f} {e.count:8d}  {e.key[:100]}")

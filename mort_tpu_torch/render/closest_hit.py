@@ -2,7 +2,7 @@
 
 The port of ``mort_tpu.render.pallas_intersect`` (``_closest_hit`` /
 ``_make_kernel`` in its accel modes ``"none"``, ``"cull"`` and ``"bvh"``,
-``cluster_boxes``, ``cluster_tree``, ``auto_accel``, ``pack_for_kernel``,
+``cluster_boxes``, ``auto_accel``, ``pack_for_kernel``,
 ``closest_hit_pallas``).  The TPU kernel's limb-packed bf16 dots and one-hot
 MXU gathers existed only to serve the MXU; here the per-(ray, primitive)
 terms are plain float32 arithmetic and the winner's joined row is one
@@ -36,12 +36,20 @@ every quad that is not a face of a closed axis-aligned box (``gen_rows``),
 then each box of ``SceneMeta.aab`` behind a slab test (``aab_tab``) and only
 the faces of the boxes a ray enters (``aab_faces``); ``"cull"`` tests the
 CL-sized sub-clusters of ``cluster_boxes`` behind an AABB slab test;
-``"bvh"`` traverses the implicit heap ``cluster_tree`` over them.  A mode changes which primitives a ray tests, not the function's
-value: the kernel keeps the lexicographic minimum over (t, row) and prunes
-only boxes that cannot hold a winner or a tie, so every mode returns the
-result of the plain scan over every primitive bit for bit, and
+``"bvh"`` traverses ``bvh_tree``, an implicit heap whose leaves are single
+rows (the JAX package's ``cluster_tree`` had the 128-row sub-clusters for
+leaves: a TPU vector step, but 128 tests for a GPU thread).  A mode
+changes which primitives a ray tests, not the function's value: the
+kernel keeps the lexicographic minimum over (t, row) and prunes only boxes
+that cannot hold a winner or a tie, so every mode returns the result of
+the plain scan over every primitive bit for bit, and
 ``closest_hit_reference`` is the plain version of all three.
 ``auto_accel`` is the JAX package's policy.
+
+The boxes of ``"cull"`` and ``"bvh"`` are widened (``_widen``, AAB_SLACK,
+SPHERE_ERR): the float32 sphere test reports hits outside a sphere's box
+near its silhouette, and a quad's pad is thinner than its window test's
+rounding near coordinate 1000.
 
 The box slab test of ``"none"`` decides only which faces are tested: the
 faces' t is the general quad test's, not the slab's (the JAX package's
@@ -91,16 +99,24 @@ QUAD_COLS = 13   # n(3) D  vxw(3) qa  wxu(3) qb  surface
 
 CK = 512         # sphere/quad rows are padded to CK for the sub-clusters
 CL = 128         # primitives per sub-cluster (one AABB)
-STACK = 32       # bvh traversal stack depth: holds a heap of 2^30 leaves
 BIG = 3.0e38     # inverted-box bound
-BOX_COLS = 8     # cull boxes: lo xyz, hi xyz, 0, 0; aab_tab: lo xyz, hi
-                 # xyz, max |corner|, 0
-NODE_COLS = 6    # bvh nodes: lo xyz, hi xyz
+BOX_COLS = 8     # cull boxes: lo xyz, hi xyz, r_min, 0 (cull_boxes);
+                 # aab_tab: lo xyz, hi xyz, max |corner|, 0
+NODE_COLS = 12   # bvh node k: the boxes of children 2k and 2k+1 (bvh_tree)
 QUAD_PAD = 1e-4  # pad of a quad's box around its four corners
-# The "none" kernel widens each closed box by AAB_SLACK * (max |o| + max
-# |corner|) before its slab test, so that no face hit the general quad test
-# reports is pruned by the slab test's or the window test's rounding.
+# Every slab test widens its box so that no hit the sphere or quad test
+# reports is pruned by the rounding of the test or of the slab: by
+# AAB_SLACK * (max |o| + the box's largest |coordinate|) (the window test of
+# a quad near coordinate 1000; "none" takes max |corner| of a closed box),
+# and, in "cull" and "bvh" where the box holds spheres, by the sphere
+# test's error: a hit it reports lies within sqrt(r^2 + k S^2) of the
+# centre, S = max |o| + the sphere's largest |coordinate|, k = SPHERE_ERR =
+# 64 * 2^-24 (the expanded quadratic cancels near silhouettes; the largest
+# k seen on grazing rays is 17.3 * 2^-24, tests/test_torch_bvh.py).  In
+# "cull" and "bvh" the part of max |o| is added per ray, the rest is built
+# into the boxes (``_widen``).
 AAB_SLACK = 2.0 ** -16
+SPHERE_ERR = 2.0 ** -18
 N_TESTS = 3      # n_tests counters: sphere tests, quad tests, box slab tests
 
 # The auto accel policy's crossover (the JAX package's BVH_MIN_PRIMS):
@@ -129,10 +145,11 @@ class PackedScene:
     joined: torch.Tensor   # [Ns_rows + Nq_rows, 27] f32 (primtable)
     quad_base: int         # global row of quad 0 in ``joined`` (= Ns_rows)
     accel: str = "none"    # "none", "cull" or "bvh"
-    # "cull": cluster_boxes [n_sub, BOX_COLS]; "bvh": cluster_tree
-    # [2L, NODE_COLS]; "none": empty
+    # "cull": cull_boxes [n_sub, BOX_COLS]; "bvh": bvh_tree's nodes
+    # [L, NODE_COLS]; "none": empty
     accel_tab: torch.Tensor | None = None
-    n_sph_sub: int = 0     # sub-clusters that hold sphere rows (the first)
+    n_sph_sub: int = 0     # "cull": sub-clusters that hold sphere rows (the
+                           # first)
     n_accel: int = 0       # "cull": n_sub; "bvh": L (leaf s is node L + s)
     # "none": the closed axis-aligned boxes of SceneMeta.aab [n_box,
     # BOX_COLS], their face rows [n_box, 6] int32 in (lo_x, hi_x, lo_y,
@@ -156,16 +173,24 @@ def _n_sph_sub(data: SceneData, meta: SceneMeta) -> int:
     return _round_up(max(data.sph_center.shape[0], CK), CK) // CL
 
 
-def _sub_boxes(lo, hi, surf, n_pad):
-    """Per-row boxes -> [n_pad // CL, 8] sub-cluster boxes; skip and
-    padding rows get inverted boxes (min > max)."""
+def _sphere_bounds(data: SceneData):
+    """Per-sphere (lo [Ns, 3], hi [Ns, 3]): a moving sphere's swept box
+    over t in [0, 1]."""
+    c, cv = data.sph_center, data.sph_cvec
+    r = torch.abs(data.sph_radius)[:, None]
+    return torch.minimum(c, c + cv) - r, torch.maximum(c, c + cv) + r
+
+
+def _group_boxes(lo, hi, surf, n_pad, group):
+    """Per-row boxes [n, 3] -> (lo, hi) [n_pad // group, 3] of groups of
+    ``group`` consecutive rows; skip and padding rows count as inverted
+    boxes (min > max), so a group of only such rows stays inverted."""
     n = lo.shape[0]
     lo = torch.where(surf[:, None], lo, BIG)
     hi = torch.where(surf[:, None], hi, -BIG)
     pad = torch.full((n_pad - n, 3), BIG, dtype=lo.dtype, device=lo.device)
-    lo = torch.cat([lo, pad]).reshape(-1, CL, 3).amin(dim=1)
-    hi = torch.cat([hi, -pad]).reshape(-1, CL, 3).amax(dim=1)
-    return torch.cat([lo, hi, torch.zeros_like(lo[:, :2])], dim=1)
+    return (torch.cat([lo, pad]).reshape(-1, group, 3).amin(dim=1),
+            torch.cat([hi, -pad]).reshape(-1, group, 3).amax(dim=1))
 
 
 def cluster_boxes(data: SceneData, meta: SceneMeta) -> torch.Tensor:
@@ -176,16 +201,15 @@ def cluster_boxes(data: SceneData, meta: SceneMeta) -> torch.Tensor:
     t in [0, 1]; quads a +-1e-4 pad around their four corners."""
     parts = []
     if meta.n_spheres:
-        c, cv = data.sph_center, data.sph_cvec
-        r = torch.abs(data.sph_radius)[:, None]
-        parts.append(_sub_boxes(torch.minimum(c, c + cv) - r,
-                                torch.maximum(c, c + cv) + r,
-                                data.sph_surface, _n_sph_sub(data, meta) * CL))
+        parts.append(_group_boxes(*_sphere_bounds(data), data.sph_surface,
+                                  _n_sph_sub(data, meta) * CL, CL))
     if meta.n_quads:
         n_pad = _round_up(max(data.quad_Q.shape[0], CK), CK)
-        parts.append(_sub_boxes(*quad_bounds(data), data.quad_surface,
-                                n_pad))
-    return torch.cat(parts, dim=0).contiguous()
+        parts.append(_group_boxes(*quad_bounds(data), data.quad_surface,
+                                  n_pad, CL))
+    lo, hi = (torch.cat(x) for x in zip(*parts))
+    return torch.cat([lo, hi, torch.zeros_like(lo[:, :2])], dim=1
+                     ).contiguous()
 
 
 def quad_bounds(data: SceneData):
@@ -217,28 +241,97 @@ def box_tables(data: SceneData, meta: SceneMeta):
     return tab.contiguous(), faces.contiguous(), gen_rows
 
 
-def cluster_tree(cbox: torch.Tensor) -> torch.Tensor:
-    """Implicit-heap AABB tree over the (Morton-ordered, so spatially
-    coherent) sub-clusters: [2L, 6] f32 (lo xyz, hi xyz) with node 1 the
-    root, children (2k, 2k+1) and leaves at [L, L + n_sub); row 0 and
-    padding leaves carry inverted boxes — the JAX package's
-    ``cluster_tree``."""
-    n_sub = cbox.shape[0]
-    L = 1
-    while L < n_sub:
+def sphere_pad(scale, r):
+    """The widening that holds every sphere hit the float32 test reports,
+    for the distance ``scale`` and the radius ``r``: sqrt(r^2 + 2 k scale^2)
+    - r with k = SPHERE_ERR (0 where r is BIG: no sphere).  It is concave
+    in scale and 0 at 0, so the pad of max |o| + c is at most the pad of
+    max |o| (the kernel's, per ray) plus the pad of c (a box's, built in)."""
+    x = 2.0 * SPHERE_ERR * scale * scale
+    return x / (torch.sqrt(r * r + x) + r)
+
+
+def _group_radius(data: SceneData, n, n_pad, group):
+    """[n_pad // group, 1]: the smallest radius of the surface spheres of
+    each group of ``group`` consecutive rows among rows [0, n), BIG where a
+    group has none."""
+    r = torch.where(data.sph_surface[:n], data.sph_radius[:n].abs(), BIG)
+    r = torch.cat([r, r.new_full((n_pad - n,), BIG)])
+    return r.reshape(-1, group).amin(dim=1, keepdim=True)
+
+
+def _widen(lo, hi, r):
+    """Boxes (lo, hi) [n, 3] widened by their pad: AAB_SLACK times their
+    largest |coordinate| plus the ``sphere_pad`` of that coordinate and
+    their spheres' smallest radius ``r`` [n, 1] (BIG for a box without
+    spheres).  Inverted boxes stay inverted."""
+    real = lo[:, :1] <= hi[:, :1]
+    scale = torch.where(real, torch.maximum(lo.abs(), hi.abs()), 0.0
+                        ).amax(dim=1, keepdim=True)
+    m = scale * AAB_SLACK + sphere_pad(scale, r)
+    return torch.where(real, lo - m, lo), torch.where(real, hi + m, hi)
+
+
+def cull_boxes(data: SceneData, meta: SceneMeta) -> torch.Tensor:
+    """The "cull" mode's table [n_sub, BOX_COLS]: ``cluster_boxes`` widened
+    by their pad (``_widen``; lo xyz, hi xyz), the smallest radius of a
+    surface sphere (BIG if none: the kernel's per-ray part of the pad),
+    0."""
+    box = cluster_boxes(data, meta)
+    n_ss = _n_sph_sub(data, meta)
+    r = torch.full((box.shape[0], 1), BIG, device=box.device)
+    if n_ss:
+        r[:n_ss] = _group_radius(data, data.sph_center.shape[0], n_ss * CL,
+                                 CL)
+    lo, hi = _widen(box[:, 0:3], box[:, 3:6], r)
+    r_min = r.amin().expand(box.shape[0], 1)
+    return torch.cat([lo, hi, r_min, torch.zeros_like(r_min)], dim=1
+                     ).contiguous()
+
+
+def bvh_tree(data: SceneData, meta: SceneMeta):
+    """The "bvh" mode's tree: an implicit heap whose leaves are single rows
+    (node 1 the root, children 2k and 2k+1, leaf s at node L + s), the
+    sphere rows first (leaf s < n_spheres is sphere row s), then the quad
+    rows, each kind in the scene builder's Morton row order.  A leaf's box
+    is its row's box of ``cluster_boxes`` (a moving sphere's swept box, a
+    quad's corners padded by QUAD_PAD) widened by its pad (``_widen``).
+
+    Returns (nodes [L, NODE_COLS] f32, L).  Row k (1 <= k < L) holds the
+    boxes of node k's two children, axis by axis: (lo, hi of child 2k, lo,
+    hi of child 2k+1) along x, then y, then z, so that a visit reads both
+    in three float4 loads.  Row 0 holds (the smallest radius of a surface
+    sphere, BIG if none; 0, ...): the kernel's per-ray part of the pad.
+    Skip and padding leaves, and nodes over only such leaves, carry
+    inverted boxes and are never entered."""
+    dev = data.sph_center.device
+    ns, nq = meta.n_spheres, meta.n_quads
+    s_lo, s_hi = _sphere_bounds(data)
+    q_lo, q_hi = quad_bounds(data)
+    lo, hi = _group_boxes(torch.cat([s_lo[:ns], q_lo[:nq]]),
+                          torch.cat([s_hi[:ns], q_hi[:nq]]),
+                          torch.cat([data.sph_surface[:ns],
+                                     data.quad_surface[:nq]]), ns + nq, 1)
+    r = torch.cat([_group_radius(data, ns, ns, 1),
+                   torch.full((nq, 1), BIG, device=dev)])
+    lo, hi = _widen(lo, hi, r)
+    L = 2
+    while L < ns + nq:
         L *= 2
-    pad = torch.full((L - n_sub, 3), BIG, dtype=cbox.dtype,
-                     device=cbox.device)
-    levels = [(torch.cat([cbox[:, 0:3], pad]),
-               torch.cat([cbox[:, 3:6], -pad]))]
-    while levels[0][0].shape[0] > 1:
+    pad = torch.full((L - ns - nq, 3), BIG, dtype=lo.dtype, device=dev)
+    levels = [(torch.cat([lo, pad]), torch.cat([hi, -pad]))]
+    while levels[0][0].shape[0] > 2:
         lo, hi = levels[0]
         levels.insert(0, (torch.minimum(lo[0::2], lo[1::2]),
                           torch.maximum(hi[0::2], hi[1::2])))
-    root_pad = torch.full((1, 3), BIG, dtype=cbox.dtype, device=cbox.device)
-    los = torch.cat([root_pad] + [lo for lo, _ in levels])
-    his = torch.cat([-root_pad] + [hi for _, hi in levels])
-    return torch.cat([los, his], dim=1).contiguous()
+    # heap rows 2 .. 2L-1 in order: row 2k + j is child j of node k
+    lo = torch.cat([lv[0] for lv in levels]).reshape(L - 1, 2, 3)
+    hi = torch.cat([lv[1] for lv in levels]).reshape(L - 1, 2, 3)
+    nodes = torch.stack([lo[:, 0], hi[:, 0], lo[:, 1], hi[:, 1]],
+                        dim=2).reshape(L - 1, NODE_COLS)
+    row0 = torch.zeros((1, NODE_COLS), device=dev)
+    row0[0, 0] = torch.cat([r[:ns, 0], r.new_full((1,), BIG)]).amin()
+    return torch.cat([row0, nodes]).contiguous(), L
 
 
 def pack_scene(data: SceneData, meta: SceneMeta, qf: QuadFrames,
@@ -270,18 +363,18 @@ def pack_scene(data: SceneData, meta: SceneMeta, qf: QuadFrames,
     with torch.no_grad():
         if accel == "none":
             aab_tab, aab_faces, gen_rows = box_tables(data, meta)
-        else:
-            accel_tab = cluster_boxes(data, meta)
+        elif accel == "cull":
+            accel_tab = cull_boxes(data, meta)
             n_accel = accel_tab.shape[0]
-            if accel == "bvh":
-                accel_tab = cluster_tree(accel_tab)
-                n_accel = accel_tab.shape[0] // 2
+        else:
+            accel_tab, n_accel = bvh_tree(data, meta)
     return PackedScene(sph=sph, n_sph=int(meta.n_spheres), quad=quad,
                        n_quad=int(meta.n_quads),
                        joined=table.contiguous(),
                        quad_base=int(data.sph_center.shape[0]),
                        accel=accel, accel_tab=accel_tab,
-                       n_sph_sub=_n_sph_sub(data, meta), n_accel=n_accel,
+                       n_sph_sub=_n_sph_sub(data, meta) if accel == "cull"
+                       else 0, n_accel=n_accel,
                        aab_tab=aab_tab, aab_faces=aab_faces,
                        gen_rows=gen_rows)
 
@@ -404,12 +497,17 @@ def _launch(packed: PackedScene, rays: torch.Tensor, t_min: float,
         tab, n_acc, n_ss = packed.accel_tab, packed.n_accel, packed.n_sph_sub
         cols = BOX_COLS if accel == "cull" else NODE_COLS
         _check("accel_tab", tab, torch.float32, dev, 2, cols)
-        n_leaves = n_acc if accel == "cull" else tab.shape[0] - n_acc
-        if ((accel == "bvh" and (tab.shape[0] != 2 * n_acc
-                                 or n_acc > 2 ** (STACK - 2)))
-                or (accel == "cull" and tab.shape[0] != n_acc)
-                or n_ss * CL < packed.n_sph
-                or (n_leaves - n_ss) * CL < packed.n_quad):
+        # "cull": n_acc sub-clusters of CL rows, the first n_ss of spheres;
+        # "bvh": L a power of two up to 2^30 (the kernel's 32-bit trail),
+        # at least one leaf a row, each node row 16-byte aligned
+        if ((accel == "bvh" and (n_acc < 2 or n_acc > 2 ** 30
+                                 or n_acc & (n_acc - 1)
+                                 or n_acc < packed.n_sph + packed.n_quad
+                                 or tab.data_ptr() % 16))
+                or (accel == "cull" and (n_ss * CL < packed.n_sph
+                                         or (n_acc - n_ss) * CL
+                                         < packed.n_quad))
+                or tab.shape[0] != n_acc):
             raise ValueError("closest_hit: inconsistent accel table")
         accel_ptr = tab.data_ptr()
     n_box = n_gen = 0

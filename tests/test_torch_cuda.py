@@ -175,6 +175,65 @@ def test_none_box_cull_equals_plain_on_edge_rays(box_world, n):
     assert n_s == n * packed.n_sph and n_b == n * 36 and n_q <= n * surf_q
 
 
+@pytest.fixture(scope="module")
+def bvh_sets():
+    """The "bvh" kernel's ray sets on the card: 2^16 camera rays of the
+    16,384-sphere scene, and chip_smoke.py's 2^16 rays grazing scene 1's
+    sphere silhouettes (the r = 1000 ground among them), each with its
+    scene packed "bvh" and "cull"."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "False)")
+    from chip_smoke import silhouette_rays
+
+    dev = require_cuda()
+    world16, cam16 = sc.spread_spheres()
+    rays16 = ch.stack_rays(*_camera_rays((world16, cam16), 1 << 16, dev))
+    world1, cam1 = sc.random_spheres()
+    data1, meta1 = world1.compile()
+    silhouettes = silhouette_rays(data1, meta1, cam1.lookfrom, 1 << 16, 14)
+    return {"spread16k": ({m: _packed(world16, dev, m)
+                           for m in ("bvh", "cull")}, rays16),
+            "silhouettes": ({m: _packed(world1, dev, m)
+                             for m in ("bvh", "cull")}, silhouettes.to(dev))}
+
+
+def _counted_equals_plain(packed, rays):
+    """The kernel bit-equal to the plain version, its counted launch too;
+    returns the (sphere, quad, slab) tests counted."""
+    want = ch.closest_hit_reference(packed, rays)
+    before = ch.launch_count[packed.accel]
+    got = ch._launch(packed, rays, ch.T_MIN)
+    counts = torch.zeros(ch.N_TESTS, dtype=torch.int64, device=rays.device)
+    counted = ch._launch(packed, rays, ch.T_MIN, counts)
+    torch.cuda.synchronize()
+    assert ch.launch_count[packed.accel] == before + 2
+    assert torch.equal(got, want) and torch.equal(counted, want)
+    return counts.tolist()
+
+
+@pytest.mark.parametrize("n", [1, 255, 4096, 1 << 16])
+@pytest.mark.parametrize("case", ["spread16k", "silhouettes"])
+def test_bvh_equals_plain(bvh_sets, case, n):
+    """The "bvh" kernel bit-equal to the plain version at ragged counts,
+    its counted launch too, and the tree prunes: a ray tests a few rows."""
+    packed, rays = bvh_sets[case]
+    packed = packed["bvh"]
+    n_s, n_q, n_b = _counted_equals_plain(packed, rays[:, :n].contiguous())
+    assert n_b > 0 and n_b % 2 == 0
+    assert n_s + n_q < 0.05 * n * (packed.n_sph + packed.n_quad)
+
+
+@pytest.mark.parametrize("n", [255, 1 << 16])
+def test_cull_equals_plain_on_silhouettes(bvh_sets, n):
+    """The "cull" kernel, whose boxes are widened as "bvh"'s are, bit-equal
+    to the plain version on the rays grazing scene 1's silhouettes."""
+    packed, rays = bvh_sets["silhouettes"]
+    n_s, n_q, n_b = _counted_equals_plain(packed["cull"],
+                                          rays[:, :n].contiguous())
+    assert 0 < n_s < n * packed["cull"].n_sph and n_q == n_b == 0
+
+
 def test_wrapper_rejects_bad_inputs(dev):
     packed = _packed(_mixed_world(), dev)
     ro, rd, tme = _rand_rays(64, dev)

@@ -5,6 +5,8 @@ against the JAX package's XLA-intersector wavefront, by the image rule of
 conftest.py.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -17,14 +19,24 @@ from mort_tpu_torch.render.wavefront import render_wavefront
 from mort_tpu_torch.scene import scenes as tsc
 
 
-def render_both(idx, camera=_golden_camera, **port_kw):
-    """The JAX package's and the port's image of scene ``idx``; each
-    package builds the scene itself (their arrays are equal:
-    test_torch_scene.py)."""
+@functools.lru_cache(maxsize=None)
+def _jax_image(idx, camera):
+    """The JAX package's XLA-intersector image of scene ``idx``, computed
+    once per process for each (scene, camera) (several port renders are
+    held against the same one)."""
     jworld, jcam = jsc.build_scene(idx)
     jdata, jmeta = jworld.compile()
     want = np.asarray(j_render(jdata, jmeta, camera(jcam), seed=GOLDEN_SEED,
                                use_pallas=False))
+    want.setflags(write=False)
+    return want
+
+
+def render_both(idx, camera=_golden_camera, **port_kw):
+    """The JAX package's and the port's image of scene ``idx``; each
+    package builds the scene itself (their arrays are equal:
+    test_torch_scene.py)."""
+    want = _jax_image(idx, camera)
     tworld, tcam = tsc.build_scene(idx)
     data, meta = tworld.compile()
     got = render_wavefront(data, meta, camera(tcam), "cpu", seed=GOLDEN_SEED,
