@@ -13,19 +13,22 @@ Phases, one line each or more (any failure raises and exits non-zero):
 3. philox: the pinned Philox vector of tests/test_rng.py, on the card;
 4. parity: the CUDA closest-hit kernel in each accel mode ("none", "bvh",
    "cull") against its plain PyTorch version on the same card tensors, on
-   eight ray sets — scene 1 (2^18 camera rays and their bounces), scene 9
+   eleven ray sets — scene 1 (2^18 camera rays and their bounces), scene 9
    (2^16, its default pool), scene 7 (2^18: the Cornell box, quads only),
-   scene9_edges (2^16 rays aimed at scene 9's
-   box edges and corners, from its camera, from far away, from box faces
-   and from inside boxes, some with a direction component under 1e-8), a
-   moving sphere/quad scene (2^18), a 16,384-sphere spread scene (2^18),
-   and 2^16 rays grazing the sphere silhouettes of scene 1 (its r = 1000
-   ground among them) and of the spread scene — t, kind, idx and rows
-   bit-equal, also from a launch that counts its sphere, quad and box or
-   node slab tests (printed a ray); then every mode and the
-   plain version timed with CUDA events on each set, one call between two
-   events and ten calls back to back, and the share of "none"'s time that
-   scene 7's quads take;
+   scene 5 (2^18: every surface row an axis-aligned quad), scene9_edges
+   (2^16 rays aimed at scene 9's box edges and corners, from its camera,
+   from far away, from box faces and from inside boxes, some with a
+   direction component under 1e-8), scene5_ and scene6_edges (4096 rays at
+   the window edges of the axis-aligned quads, some with a component under
+   1e-8), a moving sphere/quad scene (2^18), a 16,384-sphere spread scene
+   (2^18), and 2^16 rays grazing the sphere silhouettes of scene 1 (its
+   r = 1000 ground among them) and of the spread scene — t, kind, idx and
+   rows bit-equal, also from a launch that counts its sphere, quad, box or
+   node slab and axis-aligned quad tests (printed a ray); then every mode
+   and the plain version timed with CUDA events on each set, one call
+   between two events and ten calls back to back, the share of "none"'s
+   time that scene 7's quads and its axis-aligned quads take, and the rows
+   emitted on hit lanes against the joined table's;
 5. main path, scene 1: ``render_wavefront`` at its bench config (1200x675,
    100 spp, depth 20, default pool/window/spt), launch counts reset just
    before and read just after; then, at a reduced config, the same render
@@ -58,26 +61,40 @@ Phases, one line each or more (any failure raises and exits non-zero):
    ``render_wavefront``, by the image rule;
 12. the Cornell box train step (12x12, 4 spp, depth 6) on the card against
    the same step on the CPU (the Function's plain versions), and the card's
-   ``intersect_best`` route.
+   ``intersect_best`` route;
+13. main path, the CLI: ``cli.main(["render", "5", ...])`` at scene 5's
+   code-true config (400x400, 100 spp, depth 50) in-process, launch counts
+   reset just before and read just after, the PNG read back; the same
+   command through ``python -m mort_tpu_torch.cli`` (an NPZ, held against an
+   in-process ``render_wavefront`` by the image rule); ``cli bench 5``;
+14. main path, progressive: scene 6 at 600x600, depth 50, 36 spp, spt 12,
+   uninterrupted, then interrupted after two layers and resumed from its
+   checkpoint: bit-equal;
+15. the viewer: ``view`` on scene 6 at 64x64 with movement, a drag and
+   saved frames.
 
-The line before the last is the nvidia-smi name/power line, the one before
-it a JSON record of the kernels (launches on the paths above, the largest
-error against the plain version, kernel ms — one call between two events,
-and back to back — plain and bound ms); the last
-line is a JSON object with ``ok`` and the device.  Imports neither jax nor
-the JAX package.
+Files go to build/chip_smoke/ (git-ignored).  The last lines are a JSON
+record of the numerics (``{"precision": ...}``: TF32 off, each kernel's
+largest error, rows bit-equal on hit lanes), a JSON record of the kernels
+(launches on the paths above, the largest error against the plain version,
+kernel ms — one call between two events, and back to back — plain and
+bound ms), the nvidia-smi name/power line, and a JSON object with ``ok``
+and the device.  Imports neither jax nor the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import io
 import json
 import os
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -112,6 +129,9 @@ FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 # three for the discriminant), a quad up to its t test (two dots, a
 # subtraction, a division)
 SPHERE_OPS, QUAD_OPS = 34, 12
+# float32 operations of an axis-aligned quad up to its t test in "none"'s
+# specialised test: two multiplies, a subtraction, a division
+AAQ_OPS = 4
 # float32 operations of one box slab test of "none" (box_admits and
 # slab_enters): the bound (2), the slack (2), the widened box (6), the
 # inverted-box check (1), six subtractions and six multiplies, ten min/max
@@ -122,6 +142,7 @@ SLAB_OPS = 36
 # entry and exit, and four comparisons
 NODE_SLAB_OPS = 26
 R_EDGES = 1 << 16           # rays of the scene9_edges set
+R_WINDOW_EDGES = 4096       # rays of each scene5/6 window-edge set
 R_SILHOUETTES = 1 << 16     # rays of each silhouettes set
 # device clock cycles (~2.5 ms) that time_ms's sleep holds the card before
 # calls timed back to back, longer than the host takes to queue them
@@ -364,42 +385,50 @@ def surface_counts(packed):
 
 
 def count_tests(name, packed, rays, want):
-    """The (sphere, quad, box slab) tests one launch of ``packed.accel``
-    performs, from the kernel's optional counter; the counted launch must
-    still equal the plain version bit for bit.  In "none" every ray tests
-    every surface sphere and every box, and at most every surface quad
-    (every one when the scene has no closed box)."""
+    """The (sphere, quad, box or node slab, axis-aligned quad) tests one
+    launch of ``packed.accel`` performs, from the kernel's optional counter;
+    the counted launch must still equal the plain version bit for bit.  In
+    "none" every ray tests every surface sphere and every box, every live
+    axis-aligned quad by the specialised test (a finite ray) and at most
+    every other surface quad (every one when the scene has no closed box);
+    the other modes take no specialised test."""
     n = torch.zeros(ch.N_TESTS, dtype=torch.int64, device=rays.device)
     got = ch._launch(packed, rays, T_MIN, n)
     torch.cuda.synchronize()
     assert torch.equal(got, want), f"{name}: the counted launch differs"
-    n_s, n_q, n_b = (int(x) for x in n)
+    n_s, n_q, n_b, n_a = (int(x) for x in n)
     if packed.accel == "none":
         R = rays.shape[1]
         surf_s, surf_q = surface_counts(packed)
         n_box = packed.aab_tab.shape[0]
-        assert n_s == R * surf_s and n_b == R * n_box and n_q <= R * surf_q \
-            and (n_box or n_q == R * surf_q), \
-            f"{name}: counted {(n_s, n_q, n_b)} tests"
-    return n_s, n_q, n_b
+        n_aaq = int((packed.aaq_tab[:, 7] == 1.0).sum())
+        finite = bool(torch.isfinite(rays[0:6]).all())
+        assert n_s == R * surf_s and n_b == R * n_box \
+            and n_q + n_a <= R * surf_q \
+            and (n_box or n_q + n_a == R * surf_q) \
+            and (not finite or n_a == R * n_aaq), \
+            f"{name}: counted {(n_s, n_q, n_b, n_a)} tests"
+    else:
+        assert n_a == 0, f"{name}: {n_a} axis-aligned tests"
+    return n_s, n_q, n_b, n_a
 
 
 def bound_parts(packed, R, n_tests):
     """(bytes bound, operations bound) of one call in ms: the bytes the
     call must move (the [8, R] rays in, the [32, R] rows out, every table
     once) over HBM bandwidth, and the operations of the (sphere, quad, box
-    slab) tests ``n_tests`` over the float32 peak."""
+    slab, axis-aligned quad) tests ``n_tests`` over the float32 peak."""
     tabs = [packed.sph, packed.quad, packed.joined]
     for t in (packed.accel_tab, packed.aab_tab, packed.aab_faces,
-              packed.gen_rows):
+              packed.gen_rows, packed.aaq_tab, packed.aaq_groups):
         if t is not None:
             tabs.append(t)
     n_bytes = R * (8 + ch.ROW_K) * 4 + sum(t.numel() * 4 for t in tabs)
-    n_s, n_q, n_b = n_tests
+    n_s, n_q, n_b, n_a = n_tests
     slab = NODE_SLAB_OPS if packed.accel == "bvh" else SLAB_OPS
     return (n_bytes / HBM_BYTES_PER_S * 1e3,
-            (n_s * SPHERE_OPS + n_q * QUAD_OPS + n_b * slab)
-            / FP32_OPS_PER_S * 1e3)
+            (n_s * SPHERE_OPS + n_q * QUAD_OPS + n_b * slab
+             + n_a * AAQ_OPS) / FP32_OPS_PER_S * 1e3)
 
 
 def brute_force_tests(packed, R):
@@ -407,7 +436,7 @@ def brute_force_tests(packed, R):
     before its box cull), whose bound is printed beside the bound of the
     tests counted."""
     surf_s, surf_q = surface_counts(packed)
-    return R * surf_s, R * surf_q, 0
+    return R * surf_s, R * surf_q, 0, 0
 
 
 def bound_ms(packed, R, n_tests):
@@ -473,6 +502,43 @@ def box_edge_rays(lo, hi, eye, n, seed, origins=ORIGINS, tiny=0.15):
     return rays
 
 
+def window_edge_rays(data, meta, eye, n, seed, tiny=0.15):
+    """[8, n] float32 rays on the CPU aimed at the window edges and corners
+    of the axis-aligned surface quads of ``meta.aaq_class`` (alpha or beta
+    of the quad test at 0 or 1), each coordinate of the aim point moved by
+    -4..4 ulps, from ``eye`` (half) or from a point N(0, 3^2) a coordinate
+    around the quad.  A share ``tiny`` of the rays get one direction
+    component under 1e-8 (a third of those along the quad's normal: rays
+    parallel to its plane)."""
+    g = np.random.RandomState(seed)
+    rows = np.asarray([r for r, c in enumerate(meta.aaq_class)
+                       if 0 <= c <= 8], np.int64)
+    Q, u, v = (x.double().cpu().numpy()[rows] for x in (
+        data.quad_Q, data.quad_u, data.quad_v))
+    b = g.randint(0, len(rows), n)
+    ab = g.rand(n, 2)
+    edge = g.randint(0, 3, n)        # alpha on an edge, beta, or both
+    ab[edge != 1, 0] = g.randint(0, 2, int((edge != 1).sum()))
+    ab[edge != 0, 1] = g.randint(0, 2, int((edge != 0).sum()))
+    p = (Q[b] + ab[:, :1] * u[b] + ab[:, 1:] * v[b]).astype(np.float32)
+    ulps = g.randint(-4, 5, (n, 3))
+    toward = np.where(ulps > 0, np.float32(np.inf), np.float32(-np.inf))
+    for k in range(4):
+        p = np.where(np.abs(ulps) > k, np.nextafter(p, toward), p)
+    o = (Q[b] + 0.5 * (u[b] + v[b]) + g.randn(n, 3) * 3).astype(np.float32)
+    o[::2] = np.asarray(eye, np.float32)
+    d = (p - o).astype(np.float32)
+    normal = np.abs(np.cross(u[b], v[b])).argmax(axis=1)
+    small = g.rand(n) < tiny
+    axis = np.where(g.rand(n) < 1 / 3, normal, g.randint(0, 3, n))
+    d[small, axis[small]] = g.randn(int(small.sum())) * 1e-9
+    rays = torch.zeros(8, n)
+    rays[0:3] = torch.from_numpy(o).T
+    rays[3:6] = torch.from_numpy(d).T
+    rays[6] = torch.from_numpy(g.rand(n).astype(np.float32))
+    return rays
+
+
 def silhouette_rays(data, meta, eye, n, seed):
     """[8, n] float32 rays on the CPU that graze the silhouettes of the
     surface spheres of ``data`` (the largest, scene 1's r = 1000 ground,
@@ -528,24 +594,39 @@ def silhouette_rays(data, meta, eye, n, seed):
 def quad_share(s7, rays, card):
     """The share of "none"'s time that scene 7's (the Cornell box's) quads
     take on its camera and bounce rays, and the share of its axis-aligned
-    quads (what the JAX package's _aaq_group_best takes): the kernel timed
-    with every quad, without the axis-aligned ones and without any (the
-    rows the kernel scans cut, so only these timings, not a result)."""
+    quads on their specialised path (the port of the JAX package's
+    _aaq_group_best): the kernel timed with every quad, without the
+    axis-aligned ones and without any (the rows the kernel scans cut, so
+    only these timings, not a result)."""
     p = s7.packed["none"]
-    general = [r for r in p.gen_rows.tolist() if s7.meta.aaq_class[r] == 9]
-    cuts = {"all": p.gen_rows,
-            "general": torch.tensor(general, dtype=torch.int32,
-                                    device=rays.device),
-            "none": p.gen_rows[:0]}
-    ms = {k: time_ms(lambda: ch._launch(dataclasses.replace(p, gen_rows=g),
-                                        rays, T_MIN), calls=10)
-          for k, g in cuts.items()}
-    log(f"quad share scene7 R={rays.shape[1]} ({len(p.gen_rows)} quads, "
-        f"{len(p.gen_rows) - len(general)} axis-aligned), ten calls back to "
-        f"back: none {ms['all']:.4f} ms, without the axis-aligned quads {ms['general']:.4f} ms, without "
-        f"quads {ms['none']:.4f} ms: quads {1 - ms['none'] / ms['all']:.4f}, "
-        f"axis-aligned quads {1 - ms['general'] / ms['all']:.4f} of the time "
-        f"| {card}")
+    no_aaq = {"aaq_tab": p.aaq_tab[:0], "aaq_groups": p.aaq_groups[:0]}
+    cuts = {"all": p, "general": dataclasses.replace(p, **no_aaq),
+            "none": dataclasses.replace(p, gen_rows=p.gen_rows[:0],
+                                        **no_aaq)}
+    ms = {k: time_ms(lambda: ch._launch(q, rays, T_MIN), calls=10)
+          for k, q in cuts.items()}
+    log(f"quad share scene7 R={rays.shape[1]} ({len(p.gen_rows)} general "
+        f"quad rows, {len(p.aaq_tab)} axis-aligned), ten calls back to "
+        f"back: none {ms['all']:.4f} ms, without the axis-aligned quads "
+        f"{ms['general']:.4f} ms, without quads {ms['none']:.4f} ms: quads "
+        f"{1 - ms['none'] / ms['all']:.4f}, axis-aligned quads "
+        f"{1 - ms['general'] / ms['all']:.4f} of the time | {card}")
+
+
+def rows_equal_joined(name, packed, rays):
+    """The one-hot gather's counterpart: the rows the kernel emits on its
+    hit lanes are the joined table's rows of the winner bit for bit, and a
+    miss lane's are row 0.  Returns the hit lanes."""
+    out = ch._launch(packed, rays, T_MIN)
+    kind = out[ch.ROW_KIND].long()
+    idx = out[ch.ROW_IDX].long()
+    g = torch.where(kind == K_QUAD, idx + packed.quad_base, idx)
+    k_join = packed.joined.shape[1]
+    assert torch.equal(out[:k_join], packed.joined[g].T), \
+        f"{name}: emitted rows differ from the joined table's"
+    hit = kind > 0
+    assert bool((g[~hit] == 0).all()), f"{name}: a miss reads another row"
+    return int(hit.sum())
 
 
 def parity_and_timing(dev, card):
@@ -557,8 +638,10 @@ def parity_and_timing(dev, card):
     world9, cam9 = sc.final_scene(400, 250, 4)
     world16, cam16 = sc.spread_spheres()
     world7, cam7 = sc.build_scene(7)
+    world5, cam5 = sc.build_scene(5)
+    world6, cam6 = sc.build_scene(6)
     s1, s9, s16 = Scene(world1, dev), Scene(world9, dev), Scene(world16, dev)
-    s7 = Scene(world7, dev)
+    s7, s5, s6 = Scene(world7, dev), Scene(world5, dev), Scene(world6, dev)
     assert ch.auto_accel(s16.meta.n_spheres) == "bvh"
     stack = ch.stack_rays
     sets = {
@@ -568,6 +651,14 @@ def parity_and_timing(dev, card):
                                                  dev))),
         "scene7": (s7, stack(*camera_bounce_rays(s7, cam7, R_PARITY // 2,
                                                  dev))),
+        "scene5": (s5, stack(*camera_bounce_rays(s5, cam5, R_PARITY // 2,
+                                                 dev))),
+        "scene5_edges": (s5, window_edge_rays(s5.data, s5.meta,
+                                              cam5.lookfrom, R_WINDOW_EDGES,
+                                              15).to(dev)),
+        "scene6_edges": (s6, window_edge_rays(s6.data, s6.meta,
+                                              cam6.lookfrom, R_WINDOW_EDGES,
+                                              16).to(dev)),
         "scene9_edges": (s9, box_edge_rays(*box_bounds(s9.data, s9.meta),
                                            cam9.lookfrom, R_EDGES, 11
                                            ).to(dev)),
@@ -604,11 +695,12 @@ def parity_and_timing(dev, card):
         parts = []
         for m in ch.ACCELS:
             t_bytes, t_ops = bound_parts(scene.packed[m], R, tests[name][m])
-            n_s, n_q, n_b = tests[name][m]
+            n_s, n_q, n_b, n_a = tests[name][m]
             parts.append(f"{m} {row[m]:.4f} ms, back to back "
                          f"{b2b[name][m]:.4f} ms (operations bound "
                          f"{t_ops:.4f} ms for {n_s / R:.2f} sphere + "
-                         f"{n_q / R:.2f} quad + {n_b / R:.1f} "
+                         f"{n_q / R:.2f} quad + {n_a / R:.2f} axis-aligned "
+                         f"quad + {n_b / R:.1f} "
                          f"{'node' if m == 'bvh' else 'box'} slab tests a "
                          f"ray, bytes bound {t_bytes:.4f} ms)")
         brute = bound_parts(scene.packed["none"], R,
@@ -617,6 +709,11 @@ def parity_and_timing(dev, card):
             + f", plain {plain:.4f} ms; none brute-force operations bound "
             f"{brute:.4f} ms | {card}")
     quad_share(s7, sets["scene7"][1], card)
+    # scene 9's lamp, its one quad outside the boxes, is axis-aligned
+    assert tests["scene9"]["none"][3] == sets["scene9"][1].shape[1]
+    hits = {name: rows_equal_joined(name, sets[name][0].packed["none"],
+                                    sets[name][1])
+            for name in ("scene9", "scene5", "scene6_edges")}
     out = {}
     for mode in ch.ACCELS:
         b, by = bound_ms(s9.packed[mode], R_SCENE9, tests["scene9"][mode])
@@ -624,8 +721,17 @@ def parity_and_timing(dev, card):
                      "ms_back_to_back": b2b["scene9"][mode],
                      "plain_ms": times["scene9"]["plain"], "bound_ms": b,
                      "bound_by": by}
+    R5 = sets["scene5"][1].shape[1]
+    b, by = bound_ms(s5.packed["none"], R5, tests["scene5"]["none"])
+    out["aaq"] = {"err": err["none"], "ms": times["scene5"]["none"],
+                  "ms_back_to_back": b2b["scene5"]["none"],
+                  "plain_ms": times["scene5"]["plain"], "bound_ms": b,
+                  "bound_by": by, "R": R5,
+                  "tests": tests["scene5"]["none"]}
+    out["rows_hits"] = hits
     for name in ("scene7", "scene9_edges", "scene1_silhouettes",
-                 "spread16k_silhouettes"):
+                 "spread16k_silhouettes", "scene5", "scene5_edges",
+                 "scene6_edges"):
         del out_sets[name]
     return out, out_sets
 
@@ -837,6 +943,48 @@ def train_step_card_vs_cpu(dev):
         f"{float(x_loss):.7f}, grads finite")
 
 
+def read_png(path):
+    """[H, W, 3] uint8 of an 8-bit RGB PNG, decoded with zlib (the card's
+    machine has no PIL): the chunks, the IDAT stream and the five row
+    filters."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    assert buf[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG"
+    pos, idat, w, h = 8, b"", None, None
+    while pos < len(buf):
+        n, tag = struct.unpack(">I4s", buf[pos:pos + 8])
+        body = buf[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            w, h, depth, color = struct.unpack(">IIBB", body[:10])
+            assert (depth, color) == (8, 2), f"{path}: not 8-bit RGB"
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        h, 1 + 3 * w)
+    img = np.zeros((h, 3 * w), np.int64)
+    for y in range(h):
+        f, x = raw[y, 0], raw[y, 1:].astype(np.int64)
+        up = img[y - 1] if y else np.zeros(3 * w, np.int64)
+        if f in (0, 2):
+            img[y] = (x + (up if f == 2 else 0)) % 256
+            continue
+        for i in range(3 * w):
+            left = img[y, i - 3] if i >= 3 else 0
+            ul = up[i - 3] if i >= 3 else 0
+            if f == 1:
+                pred = left
+            elif f == 3:
+                pred = (left + up[i]) // 2
+            else:
+                pa, pb = abs(up[i] - ul), abs(left - ul)
+                pc = abs(left + up[i] - 2 * ul)
+                pred = (left if pa <= pb and pa <= pc
+                        else up[i] if pb <= pc else ul)
+            img[y, i] = (x[i] + pred) % 256
+    return img.astype(np.uint8).reshape(h, w, 3)
+
+
 def render_pair(data, meta, cam, dev):
     """The kernel's and the plain closest hit's image of one config, and
     the kernel launches per mode of the first."""
@@ -890,6 +1038,187 @@ def main_path(name, world, cam, dev, card, profiled=False):
                                  f"ms)" for m, us in modes.items() if us)
             + f" | {card}")
     return counts
+
+
+def out_dir():
+    """A directory for the files the phases below write, under the
+    checkout's git-ignored build/."""
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "chip_smoke")
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def cli_main_path(dev, card, aaq):
+    """The CLI main path: ``cli render 5`` at scene 5's code-true config
+    (400x400, 100 spp, depth 50, auto accel "none") in-process, launch
+    counts reset just before and read just after; then the same command as
+    ``python -m mort_tpu_torch.cli`` in a subprocess (exit 0), both files
+    read back, the NPZ held against an in-process ``render_wavefront`` of
+    the same seed by the image rule; then ``cli bench 5 --frames 2``.
+    Returns the launches of the in-process render."""
+    from mort_tpu_torch import cli
+
+    d = out_dir()
+    png, npz = os.path.join(d, "scene5.png"), os.path.join(d, "scene5.npz")
+    for f in (png, npz):
+        if os.path.exists(f):
+            os.unlink(f)
+    world, cam = sc.build_scene(5)       # 400x400, 100 spp, depth 50
+    W, H = cam.image_width, cam.image_height
+    reset_counts()
+    rec = cli.main(["render", "5", "--out", png])
+    counts = read_counts()
+    assert counts["none"] > 0, "cli render: the none kernel never launched"
+    assert (rec["width"], rec["height"], rec["spp"], rec["bounce_limit"]) \
+        == (W, H, cam.sqrt_spp ** 2, cam.bounce_limit), rec
+    u8 = read_png(png)
+    assert u8.shape == (H, W, 3) and u8.max() > 0, u8.shape
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "mort_tpu_torch.cli", "render", "5", "--out",
+         npz], cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=600)
+    sub_s = time.perf_counter() - t0
+    assert res.returncode == 0, f"cli subprocess: {res.returncode}\n" \
+        f"{res.stdout}{res.stderr}"
+    img = np.load(npz)["image"]
+    assert img.shape == (H, W, 3) and np.isfinite(img).all()
+    data, meta = world.compile()
+    want = render_wavefront(data, meta, cam, dev, seed=SEED).cpu().numpy()
+    frac, mdiff = assert_images_close(img, want)
+    R, (n_s, n_q, n_b, n_a) = aaq["R"], aaq["tests"]
+    log(f"main path cli render 5 {W}x{H} @ {rec['spp']}spp depth "
+        f"{rec['bounce_limit']} (in-process): "
+        f"wall {rec['wall_s']:.3f} s, {rec['paths_per_s']:.1f} paths/s, "
+        f"{rec['ray_segments_per_s']:.1f} segments/s, none launches "
+        f"{counts['none']}; on phase 4's scene5 rays {n_a / R:.2f} "
+        f"axis-aligned and {n_q / R:.2f} general quad tests a ray; PNG "
+        f"read back {u8.shape}, mean {u8.mean():.2f} | {card}")
+    log(f"cli subprocess: rc 0 in {sub_s:.2f} s; "
+        + " | ".join(res.stderr.strip().splitlines()) + f"; NPZ vs "
+        f"in-process render_wavefront frac_within={frac:.5f}, "
+        f"mean_abs={mdiff:.3e}")
+    bench = cli.main(["bench", "5", "--frames", "2"])
+    log(f"cli bench 5: {json.dumps(bench)} | {card}")
+    return counts
+
+
+PROG_SQRT_SPP, PROG_SPT = 6, 12     # scene 6 cut to 36 spp: three layers
+
+
+def progressive_main_path(dev, card):
+    """The progressive wavefront on scene 6 (cornell_box) at its own
+    600x600 and depth 50, spp cut to 36, spt 12: once uninterrupted
+    (launch counts reset just before and read just after), then
+    interrupted after two steps with a checkpoint and resumed from
+    ``load_state`` in a fresh call: the two framebuffers are equal bit for
+    bit.  Returns the launches of the uninterrupted run."""
+    from mort_tpu_torch.render.progressive import (
+        load_state, render_progressive_wavefront,
+    )
+
+    world, cam = sc.build_scene(6)
+    data, meta = world.compile()
+    own_spp = cam.sqrt_spp ** 2
+    cam = cam.replace(sqrt_spp=PROG_SQRT_SPP)
+    spp = PROG_SQRT_SPP ** 2
+    n_layers = spp // PROG_SPT
+    steps = []
+    reset_counts()
+    t0 = time.perf_counter()
+    full = render_progressive_wavefront(
+        data, meta, cam, seed=SEED, spt=PROG_SPT,
+        on_step=lambda st: steps.append(time.perf_counter()))
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    assert counts["none"] > 0, "progressive: the none kernel never launched"
+    assert full.samples_done == spp and len(steps) == n_layers
+    assert np.isfinite(full.fb).all() and 0.01 < float(full.fb.mean()) < 2
+
+    class Interrupted(BaseException):
+        pass
+
+    def stop_after_two(state):
+        if state.samples_done >= 2 * PROG_SPT:
+            raise Interrupted
+
+    ckpt = os.path.join(out_dir(), "scene6_progressive.npz")
+    try:
+        render_progressive_wavefront(data, meta, cam, seed=SEED,
+                                     spt=PROG_SPT, checkpoint_path=ckpt,
+                                     on_step=stop_after_two)
+        raise AssertionError("progressive: the interruption did not happen")
+    except Interrupted:
+        pass
+    state = load_state(ckpt)
+    assert state.samples_done == 2 * PROG_SPT, state.samples_done
+    resumed = render_progressive_wavefront(data, meta, cam, seed=SEED,
+                                           spt=PROG_SPT, state=state)
+    assert np.array_equal(resumed.fb, full.fb), \
+        "progressive: the resumed render differs from the uninterrupted one"
+    per_layer = np.diff([t0] + steps)
+    n_paths = cam.image_width * cam.image_height * spp
+    log(f"main path progressive scene6 {cam.image_width}x{cam.image_height} "
+        f"@ {spp}spp (cut from {own_spp}) depth {cam.bounce_limit}, spt "
+        f"{PROG_SPT}: {wall:.3f} s, s a layer "
+        f"{', '.join(f'{x:.3f}' for x in per_layer)}, "
+        f"{n_paths / wall:.1f} paths/s, none launches {counts['none']}; "
+        f"interrupted after 2 layers, resumed from the checkpoint: "
+        f"bit-equal | {card}")
+    return counts
+
+
+def viewer_path(dev):
+    """``view`` on scene 6 at 64x64, 4 spp: a frame, a key, a drag, a
+    frame, a key, a frame, each frame saved as PNG and read back."""
+    from mort_tpu_torch.interactive import view
+
+    world, cam = sc.build_scene(6)
+    data, meta = world.compile()
+    cam = cam.replace(image_width=64, image_height=64, sqrt_spp=2)
+    pattern = os.path.join(out_dir(), "view{}.png")
+    for k in (1, 2, 3):
+        if os.path.exists(pattern.format(k)):
+            os.unlink(pattern.format(k))
+    buf = io.StringIO()
+    reset_counts()
+    frame = view(data, meta, cam, [("frame",), ("key", "w"),
+                                   ("mouse", 30.0, -10.0), ("frame",),
+                                   ("key", "d"), ("frame",)], seed=SEED,
+                 out_pattern=pattern, log=buf)
+    counts = read_counts()
+    assert counts["none"] > 0 and np.isfinite(frame).all()
+    means = [float(read_png(pattern.format(k)).mean()) for k in (1, 2, 3)]
+    assert buf.getvalue().count("Avg. time per frame:") == 3
+    log(f"viewer scene6 64x64 @ 4spp: 3 frames written and read back (u8 "
+        f"means {', '.join(f'{m:.2f}' for m in means)}), none launches "
+        f"{counts['none']}; {buf.getvalue().strip().splitlines()[-1]}")
+
+
+def precision_record(kern, rows_hits):
+    """The card counterpart of tools/mosaic_check.py: TF32 off for matmuls
+    and cuDNN, float32 matmul precision "highest", every kernel's largest
+    error against its float32 plain version (0 for every forward mode),
+    and the emitted rows equal to the joined table's rows on hit lanes (the
+    one-hot gather's counterpart; checked in phase 4).  Fails the run if
+    one of them is violated."""
+    rec = {
+        "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+        "float32_matmul_precision": torch.get_float32_matmul_precision(),
+        "max_abs_err": {k: v["err"] for k, v in kern.items()},
+        # the backward's table sums, in atomic order, were held within
+        # BWD_SUM_RTOL of each entry's sum of |terms| in phase 9
+        "bwd_sum_rtol": BWD_SUM_RTOL,
+        "rows_bit_equal_hit_lanes": rows_hits,
+    }
+    assert rec["matmul_allow_tf32"] is False, rec
+    assert rec["cudnn_allow_tf32"] is False, rec
+    assert rec["float32_matmul_precision"] == "highest", rec
+    assert all(kern[k]["err"] == 0.0 for k in ("none", "cull", "bvh",
+                                               "aaq")), rec
+    return rec
 
 
 def main():
@@ -1012,22 +1341,41 @@ def main():
     # ---- 12. the Cornell train step, card against CPU ----
     train_step_card_vs_cpu(dev)
 
+    # ---- 13. main path: the CLI, scene 5 at its code-true config ----
+    counts13 = cli_main_path(dev, card, kern["aaq"])
+    log(f"phase 13 done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 14. main path: progressive checkpoint/resume, scene 6 ----
+    counts14 = progressive_main_path(dev, card)
+
+    # ---- 15. the viewer ----
+    viewer_path(dev)
+    log(f"phase 15 done at {time.perf_counter() - t_start:.1f} s")
+
     launches = {"none": counts9["none"], "bvh": counts16m["bvh"],
-                "cull": four_counts["cull"], "bwd": counts10["bwd"]}
+                "cull": four_counts["cull"], "bwd": counts10["bwd"],
+                "aaq": counts13["none"]}
     log(f"launches: none {counts9['none']} (scene 9 main path; scene 1 main "
         f"path {counts1['none']}), bvh {launches['bvh']} (spread16k main "
         f"path; scene 9 four-way {four_counts['bvh']}, spread16k 160x90 "
         f"{counts16['bvh']}), cull {launches['cull']} (scene 9 four-way), "
         f"bwd {launches['bwd']} (the train step main path, "
-        f"{len(GRAD_SEEDS)} steps)")
+        f"{len(GRAD_SEEDS)} steps), none with the axis-aligned path "
+        f"{launches['aaq']} (the cli render 5 main path; progressive scene "
+        f"6 {counts14['none']})")
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    rows_hits = kern.pop("rows_hits")
+    log(json.dumps({"precision": precision_record(kern, rows_hits)}))
     names = {"none": "closest_hit", "bvh": "closest_hit_bvh",
-             "cull": "closest_hit_cull", "bwd": "closest_hit_bwd"}
+             "cull": "closest_hit_cull", "bwd": "closest_hit_bwd",
+             "aaq": "closest_hit_aaq"}
     replaces = dict.fromkeys(ch.ACCELS,
                              "mort_tpu/render/pallas_intersect.py:1215")
     replaces["bwd"] = "mort_tpu/render/pallas_intersect.py:1305"
+    replaces["aaq"] = "mort_tpu/render/pallas_intersect.py:690"
     shapes = dict.fromkeys(ch.ACCELS, f"scene9 R={R_SCENE9}")
     shapes["bwd"] = f"scene1 grad R={GRAD_W * GRAD_H}"
+    shapes["aaq"] = f"scene5 R={kern['aaq']['R']}"
     log(json.dumps({"kernels": [{
         "name": names[k], "route": "cuda",
         "source": "mort_tpu_torch/csrc/closest_hit.cu",
@@ -1036,7 +1384,7 @@ def main():
         "ms_back_to_back": kern[k]["ms_back_to_back"],
         "plain_ms": kern[k]["plain_ms"], "bound_ms": kern[k]["bound_ms"],
         "bound_by": kern[k]["bound_by"], "library_ms": None,
-        "shape": shapes[k]} for k in ch.ACCELS + ("bwd",)]}))
+        "shape": shapes[k]} for k in ch.ACCELS + ("bwd", "aaq")]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,7 +36,7 @@ SIGNATURES = {
     "closest_hit": {
         "mort_closest_hit": (_I, (_P, _I, _P, _I, _P, _I, _P, _I, _I, _F,
                                   _I, _P, _I, _I, _P, _P, _P, _I, _I, _P,
-                                  _P, _P)),
+                                  _P, _I, _I, _P, _P, _P)),
         "mort_closest_hit_bwd": (_I, (_P, _I, _P, _P, _P, _P, _P, _P, _I,
                                       _I, _F, _P, _P, _P, _P, _P)),
         "mort_cuda_error_string": (ctypes.c_char_p, (_I,)),

@@ -4,10 +4,12 @@
 // mort_tpu/render/pallas_intersect.py::_closest_hit (kernel body
 // _make_kernel) in its three accel modes:
 //
-//   "none"  the sphere scan _sphere_chunk_best, the closed-box path
-//           _aab_best (as a slab cull in front of the general face test),
-//           the general-quad scan _quad_gen_best, the merge and the row
-//           emit _emit_row (its notes are at the kernel, below);
+//   "none"  the sphere scan _sphere_chunk_best, the general-quad scan
+//           _quad_gen_best, the axis-aligned-quad path _aaq_group_best (a
+//           test specialised to each orientation group's axes), the
+//           closed-box path _aab_best (as a slab cull in front of the
+//           general face test), the merge and the row emit _emit_row (its
+//           notes are at the kernel, below);
 //   "cull"  the same tests, one CL-sized sub-cluster at a time, each behind
 //           an AABB slab test (cluster_boxes, widened: box_enters);
 //   "bvh"   traversal of an implicit heap whose leaves are single rows (the
@@ -72,6 +74,8 @@ constexpr int kBoxCols = 8;     // cull boxes: lo xyz, hi xyz, 0, 0; closed
                                 // boxes: lo xyz, hi xyz, max |corner|, 0
 constexpr float kTiny = 1e-30f; // slab substitute for a zero direction
 constexpr int kModeNone = 0, kModeCull = 1, kModeBvh = 2;
+constexpr int kAaqCols = 8;     // aaq_tab: n_k D a_i qa b_j qb row live
+constexpr int kGroupCols = 5;   // aaq_groups: start n k i j
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -180,12 +184,108 @@ __device__ __forceinline__ bool quad_test(const Ray& r, Rec rec, int row,
   return true;
 }
 
-// Adds one thread's sphere, quad and box slab test counts to n_tests[0..2].
+// Component C (0, 1 or 2) of (x, y, z).
+template <int C>
+__device__ __forceinline__ float axis(float x, float y, float z) {
+  if constexpr (C == 0) return x;
+  else if constexpr (C == 1) return y;
+  else return z;
+}
+
+// The test of one axis-aligned quad row of aaq_tab (closest_hit.aaq_tables:
+// a = (n_k, D, a_i, qa), b = (b_j, qb, row, flag)) against the ray's
+// components along its group's axes k, i, j: quad_test with the frame's
+// exact zeros left out.  For a finite ray each dot3 of quad_test is exactly
+// its one nonzero product (adding a zero product changes at most the sign of
+// a zero, which no comparison sees), so den, num, t, alpha and beta are
+// quad_test's bit for bit.  Keeps the lexicographic minimum of (t, row).
+__device__ __forceinline__ void aaq_test(float ok, float dk, float oi,
+                                         float di, float oj, float dj,
+                                         float4 a, float4 b, float t_min,
+                                         float& qt, int& qi) {
+  const float den = mul(a.x, dk);
+  if (!(fabsf(den) >= 1e-8f)) return;
+  const float t = __fdiv_rn(sub(a.y, mul(a.x, ok)), den);
+  if (!(t > t_min)) return;
+  const float alpha = add(sub(mul(a.z, oi), a.w), mul(t, mul(a.z, di)));
+  const float beta = add(sub(mul(b.x, oj), b.y), mul(t, mul(b.x, dj)));
+  const int row = (int)b.z;
+  if (alpha >= 0.0f && alpha <= 1.0f && beta >= 0.0f && beta <= 1.0f &&
+      (t < qt || (t == qt && row < qi))) {
+    qt = t;
+    qi = row;
+  }
+}
+
+// The rows [lo, hi) of one orientation group (normal along K, u along I, v
+// along J; a = (n_k, D, a_i, qa), b = (b_j, qb, row, live)) against a
+// finite ray; a skip row (live 0) is no test.  The axes are template
+// parameters, so the ray's components are read from its own registers, not
+// copied into six more.
+template <bool kCount, int K, int I, int J>
+__device__ __forceinline__ void aaq_rows(const Ray& r, const float4* rows,
+                                         int lo, int hi, float& qt, int& qi,
+                                         int& n_a) {
+  for (int e = lo; e < hi; ++e) {
+    const float4 b = __ldg(rows + 2 * e + 1);
+    if (b.w == 0.0f) continue;
+    aaq_test(axis<K>(r.ox, r.oy, r.oz), axis<K>(r.dx, r.dy, r.dz),
+             axis<I>(r.ox, r.oy, r.oz), axis<I>(r.dx, r.dy, r.dz),
+             axis<J>(r.ox, r.oy, r.oz), axis<J>(r.dx, r.dy, r.dz),
+             __ldg(rows + 2 * e), b, r.t_min, qt, qi);
+    if constexpr (kCount) ++n_a;
+  }
+}
+
+// Every row of aaq_tab (`rows`, n of them) against the ray, group by group
+// (`groups`, n_groups descriptors): aaq_rows on a finite ray; quad_test on
+// each live row's record for a ray with a non-finite component, where
+// quad_test's 0 * inf is NaN and aaq_test has no such product.  The rows
+// and descriptors are read through __ldg (L1-resident, the same addresses
+// for every thread): staging them in shared memory, in a pipelined phase
+// of their own, and passing the descriptors by value were timed slower
+// (PERF.md).
+template <bool kCount>
+__device__ __forceinline__ void aaq_scan(
+    const Ray& r, const float4* __restrict__ rows, int n,
+    const int* __restrict__ groups, int n_groups,
+    const float* __restrict__ quad, float& qt, int& qi, int& n_a, int& n_q) {
+  const bool finite = isfinite(r.ox) && isfinite(r.oy) && isfinite(r.oz) &&
+                      isfinite(r.dx) && isfinite(r.dy) && isfinite(r.dz);
+  if (!finite) {
+    for (int e = 0; e < n; ++e) {
+      const float4 b = __ldg(rows + 2 * e + 1);
+      if (b.w == 0.0f) continue;
+      const int row = (int)b.z;
+      quad_test(r, RowRec{quad + (size_t)row * kQuadCols}, row, qt, qi);
+      if constexpr (kCount) ++n_q;
+    }
+    return;
+  }
+  for (int g = 0; g < n_groups; ++g) {
+    const int* d = groups + g * kGroupCols;
+    const int lo = __ldg(d), hi = lo + __ldg(d + 1);
+    // the class u_axis * 3 + v_axis; the normal is the third axis
+    switch (__ldg(d + 3) * 3 + __ldg(d + 4)) {
+      case 1: aaq_rows<kCount, 2, 0, 1>(r, rows, lo, hi, qt, qi, n_a); break;
+      case 2: aaq_rows<kCount, 1, 0, 2>(r, rows, lo, hi, qt, qi, n_a); break;
+      case 3: aaq_rows<kCount, 2, 1, 0>(r, rows, lo, hi, qt, qi, n_a); break;
+      case 5: aaq_rows<kCount, 0, 1, 2>(r, rows, lo, hi, qt, qi, n_a); break;
+      case 6: aaq_rows<kCount, 1, 2, 0>(r, rows, lo, hi, qt, qi, n_a); break;
+      case 7: aaq_rows<kCount, 0, 2, 1>(r, rows, lo, hi, qt, qi, n_a); break;
+    }
+  }
+}
+
+// Adds one thread's sphere, quad, box slab and axis-aligned quad test counts
+// to n_tests[0..3].
 __device__ __forceinline__ void add_counts(unsigned long long* n_tests,
-                                           int n_s, int n_q, int n_b = 0) {
+                                           int n_s, int n_q, int n_b = 0,
+                                           int n_a = 0) {
   if (n_s) atomicAdd(n_tests, (unsigned long long)n_s);
   if (n_q) atomicAdd(n_tests + 1, (unsigned long long)n_q);
   if (n_b) atomicAdd(n_tests + 2, (unsigned long long)n_b);
+  if (n_a) atomicAdd(n_tests + 3, (unsigned long long)n_a);
 }
 
 // Merge (sphere wins ties) and write the winner's joined row, t, kind, idx.
@@ -284,17 +384,28 @@ __device__ __forceinline__ bool box_enters(const Slab& b, float lx, float hx,
 // ---- "none" ----
 //
 // Replaces _make_kernel's "none" branch: the sphere scan _sphere_chunk_best,
-// the closed-box path _aab_best, the general-quad scan _quad_gen_best over
-// the compacted table of pack_quads_general, the merge and _emit_row.
+// the general-quad scan _quad_gen_best over the compacted table of
+// pack_quads_general, the axis-aligned-quad path _aaq_group_best over
+// pack_aaq's orientation groups, the closed-box path _aab_best, the merge
+// and _emit_row.
 //
-// Each ray scans (1) every sphere, (2) every quad that is no face of a
-// closed axis-aligned box (gen_rows, with their registry rows as ids) and
-// (3) every box of SceneMeta.aab behind a slab test, running quad_test on a
+// Each ray scans (1) every sphere, (2) every quad that is neither
+// axis-aligned nor a face of a closed axis-aligned box (gen_rows, with their
+// registry rows as ids), (3) every axis-aligned quad (aaq_tab), group by
+// group with aaq_test on the ray's components along the group's axes
+// (aaq_rows, one instantiation for each of the six orientations), and (4)
+// every box of SceneMeta.aab behind a slab test, running quad_test on a
 // box's six faces (read through __ldg by registry row) only where the ray
-// enters it.  The lexicographic (t, row) minimum does not depend on the
-// order of the visits, and a box is entered whenever it could hold a face
-// hit at t <= bound, ties included, so the result is the plain scan's bit
-// for bit.  _aab_best's own arithmetic (t read off the slab, the face from
+// enters it.  _aaq_group_best's own t, (Q_k - ro_k) * (1 / rd_k), is an ulp
+// away from the general test's and is not taken: aaq_test is the general
+// test's arithmetic (above).  A ray with a non-finite component (where quad_test's 0 * inf is NaN and
+// aaq_test has no such product) and a row whose frame is no longer
+// axis-aligned (flag 2) take quad_test on the row instead, so every ray gets
+// the plain scan's result.
+//
+// The lexicographic (t, row) minimum does not depend on the order of the
+// visits, and a box is entered whenever it could hold a face hit at
+// t <= bound, ties included, so the result is the plain scan's bit for bit.  _aab_best's own arithmetic (t read off the slab, the face from
 // the axis that attains it) is not taken: that t is an ulp away from the
 // general (D - n.o)/(n.d), and the slab here only decides which faces are
 // tested.  The box is widened by kAabSlack (max |o| + max |corner|) before
@@ -305,8 +416,8 @@ __device__ __forceinline__ bool box_enters(const Slab& b, float lx, float hx,
 // rounded float ops (none may fuse into an FMA) and ~45 instructions on
 // its common path; a quad test is 12 counted ops but as many instructions
 // (13 loads, an IEEE division); a box slab test 36 ops.  So scene 9 (1,007
-// spheres, one general quad and 400 boxes, of whose faces a ray tests a
-// few) issues ~60 k instructions a ray where testing all 2,401 quads issued
+// spheres, one axis-aligned quad and 400 boxes, of whose faces a ray tests
+// a few) issues ~60 k instructions a ray where testing all 2,401 quads issued
 // ~150 k.  What the design does about it:
 // - records are staged in shared memory padded to 16-byte multiples (a
 //   sphere in 12 floats, a quad in 16 with its registry row, a box in 8),
@@ -314,7 +425,11 @@ __device__ __forceinline__ bool box_enters(const Slab& b, float lx, float hx,
 //   loads;
 // - tiles are copied with cp.async into a two-stage buffer, the next
 //   tile's copy in flight while the block tests the current one; one 32 KB
-//   buffer serves the three phases.
+//   buffer serves the three staged phases;
+// - an axis-aligned quad test is 4 rounded ops up to its t test (the
+//   general test's 12) and reads its record in two float4 loads.  On
+//   scene 7's six it still costs more than the general test did inside the
+//   general quads' tile (a group a switch, few rows a group; PERF.md).
 // One thread a ray.  Threads sharing a ray (2 or 4, each testing every
 // S-th record, merged by shuffles) and two rays a thread (a record loaded
 // once serving two tests) were built and timed: neither was faster on the
@@ -417,6 +532,9 @@ closest_hit_none_kernel(const float* __restrict__ rays, int R,
                         const int* __restrict__ gen_rows, int n_gen,
                         const float* __restrict__ boxes,
                         const int* __restrict__ faces, int n_box,
+                        const float* __restrict__ aaq,
+                        const int* __restrict__ groups, int n_aaq,
+                        int n_groups,
                         const float* __restrict__ joined, int k_join,
                         int quad_base, float t_min,
                         float* __restrict__ row_out,
@@ -428,7 +546,7 @@ closest_hit_none_kernel(const float* __restrict__ rays, int R,
   // ragged tail: compute on a real ray, so every thread reaches the barriers
   const Ray r = load_ray(rays, R, live ? i : R - 1, t_min);
   float best = CUDART_INF_F, qt = CUDART_INF_F;
-  int best_i = 0, qi = 0, n_s = 0, n_q = 0, n_b = 0;
+  int best_i = 0, qi = 0, n_s = 0, n_q = 0, n_b = 0, n_a = 0;
 
   // ---- 1. spheres: roots scaled by a ----
   pipelined(
@@ -470,7 +588,12 @@ closest_hit_none_kernel(const float* __restrict__ rays, int R,
         }
       });
 
-  // ---- 3. closed boxes: a slab test, then the faces of an entered box ----
+  // ---- 3. the axis-aligned quads, group by group ----
+  if (n_aaq > 0)
+    aaq_scan<kCount>(r, reinterpret_cast<const float4*>(aaq), n_aaq, groups,
+                     n_groups, quad, qt, qi, n_a, n_q);
+
+  // ---- 4. closed boxes: a slab test, then the faces of an entered box ----
   if (n_box > 0) {
     const float irx = slab_inv(r.dx), iry = slab_inv(r.dy);
     const float irz = slab_inv(r.dz);
@@ -503,7 +626,7 @@ closest_hit_none_kernel(const float* __restrict__ rays, int R,
   }
 
   if (!live) return;
-  if constexpr (kCount) add_counts(n_tests, n_s, n_q, n_b);
+  if constexpr (kCount) add_counts(n_tests, n_s, n_q, n_b, n_a);
   emit(r, best, best_i, qt, qi, joined, k_join, quad_base, R, i, row_out);
 }
 
@@ -842,6 +965,9 @@ struct FwdArgs {
   const int* aab_faces;
   const int* gen_rows;
   int n_box, n_gen;
+  const float* aaq_tab;
+  const int* aaq_groups;
+  int n_aaq, n_groups;
   float* row_out;
   unsigned long long* n_tests;
 };
@@ -853,8 +979,8 @@ void launch(int mode, const FwdArgs& a, cudaStream_t s) {
   if (mode == kModeNone) {
     closest_hit_none_kernel<kCount><<<grid, kThreads, 0, s>>>(
         a.rays, a.R, a.sph, a.n_sph, a.quad, a.gen_rows, a.n_gen, a.aab_tab,
-        a.aab_faces, a.n_box, a.joined, a.k_join, a.quad_base, a.t_min,
-        a.row_out, a.n_tests);
+        a.aab_faces, a.n_box, a.aaq_tab, a.aaq_groups, a.n_aaq, a.n_groups,
+        a.joined, a.k_join, a.quad_base, a.t_min, a.row_out, a.n_tests);
   } else if (mode == kModeCull) {
     closest_hit_cull_kernel<kCount><<<grid, kThreads, 0, s>>>(
         a.rays, a.R, a.sph, a.n_sph, a.quad, a.n_quad, a.joined, a.k_join,
@@ -877,25 +1003,29 @@ extern "C" {
 // [n_accel, 8] whose first `n_sph_sub` hold sphere rows (mode 1), or the
 // bvh nodes [n_accel, 12] with n_accel = L, a power of two up to 2^30,
 // 16-byte aligned (mode 2); unused in mode 0.  Mode 0 reads `aab_tab`
-// [n_box, 8] (16-byte aligned), `aab_faces` [n_box, 6] and `gen_rows`
-// [n_gen] instead of scanning the n_quad quad rows in order.  Allocates
-// nothing; `row_out` is a [32, R] float32 buffer.  `n_tests`: null, or three
-// counters to which the launch adds the sphere, quad and box (modes 0 and
-// 2) slab tests it performs (the results do not change).
+// [n_box, 8] (16-byte aligned), `aab_faces` [n_box, 6], `gen_rows` [n_gen],
+// `aaq_tab` [n_aaq, 8] (16-byte aligned) and its `aaq_groups` [n_groups, 5]
+// instead of scanning the n_quad quad rows in order.  Allocates nothing;
+// `row_out` is a [32, R] float32 buffer.  `n_tests`: null, or four counters
+// to which the launch adds the sphere, quad, box (modes 0) or node (mode 2)
+// slab and axis-aligned quad (mode 0) tests it performs (the results do not
+// change).
 int mort_closest_hit(const float* rays, int R, const float* sph, int n_sph,
                      const float* quad, int n_quad, const float* joined,
                      int k_join, int quad_base, float t_min, int mode,
                      const float* accel, int n_sph_sub, int n_accel,
                      const float* aab_tab, const int* aab_faces,
                      const int* gen_rows, int n_box, int n_gen,
-                     float* row_out,
+                     const float* aaq_tab, const int* aaq_groups, int n_aaq,
+                     int n_groups, float* row_out,
                      unsigned long long* n_tests, void* stream) {
   if (R <= 0) return (int)cudaGetLastError();
   if (mode < kModeNone || mode > kModeBvh) return (int)cudaErrorInvalidValue;
-  const FwdArgs a{rays,      R,         sph,       n_sph,   quad,
-                  n_quad,    joined,    k_join,    quad_base, t_min,
-                  accel,     n_sph_sub, n_accel,   aab_tab, aab_faces,
-                  gen_rows,  n_box,     n_gen,     row_out, n_tests};
+  const FwdArgs a{rays,      R,          sph,       n_sph,   quad,
+                  n_quad,    joined,     k_join,    quad_base, t_min,
+                  accel,     n_sph_sub,  n_accel,   aab_tab, aab_faces,
+                  gen_rows,  n_box,      n_gen,     aaq_tab, aaq_groups,
+                  n_aaq,     n_groups,   row_out,   n_tests};
   cudaStream_t s = (cudaStream_t)stream;
   if (n_tests == nullptr)
     launch<false>(mode, a, s);

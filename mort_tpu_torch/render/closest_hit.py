@@ -31,10 +31,12 @@ Quads use the general plane/window test of ``intersect.quad_pass``.
 Earlier rows win ties (strict ``<``), and a sphere beats a quad on an exact
 tie.  Non-surface and padding rows never win.
 
-Accel modes (``PackedScene.accel``): ``"none"`` tests every sphere and
-every quad that is not a face of a closed axis-aligned box (``gen_rows``),
-then each box of ``SceneMeta.aab`` behind a slab test (``aab_tab``) and only
-the faces of the boxes a ray enters (``aab_faces``); ``"cull"`` tests the
+Accel modes (``PackedScene.accel``): ``"none"`` tests every sphere, every
+quad that is neither axis-aligned nor a face of a closed axis-aligned box
+(``gen_rows``), the axis-aligned quads group by orientation with a test
+specialised to the axes (``aaq_tab``, ``aaq_groups``), then each box of
+``SceneMeta.aab`` behind a slab test (``aab_tab``) and only the faces of the
+boxes a ray enters (``aab_faces``); ``"cull"`` tests the
 CL-sized sub-clusters of ``cluster_boxes`` behind an AABB slab test;
 ``"bvh"`` traverses ``bvh_tree``, an implicit heap whose leaves are single
 rows (the JAX package's ``cluster_tree`` had the 128-row sub-clusters for
@@ -58,6 +60,20 @@ A box is entered when its slab interval, widened by ``AAB_SLACK`` times
 (max |o| + max |box corner|), reaches (t_min, bound]: the +-1e-4 pad alone
 is thinner than the rounding of the face test's window at the scene's
 coordinates (PERF.md).
+
+The specialised test of an axis-aligned quad (``aaq_tables``) is the
+general test with the frame's exact zeros left out: ``quad_frames`` gives an
+axis-aligned quad a normal, ``vxw`` and ``wxu`` whose off-axis components
+are exact zeros (cross products of axis vectors), so for a finite ray each
+3-term dot of the general test is exactly its one nonzero product (up to
+the sign of a zero, which no comparison sees), and the specialised test
+returns the general test's t bit for bit.  n_k, D, a_i, qa, b_j and qb are
+read from the quad's record (n_k is not assumed to be +-1).  A ray with a
+non-finite component (where the general test's 0 * inf is NaN) takes the
+general test on these rows in the kernel, and a row whose frame is no
+longer axis-aligned (``quad_u``/``quad_v`` moved by a gradient step) goes
+to ``gen_rows``, so the result is the plain scan's for every ray.  The JAX package's ``_aaq_group_best`` takes t
+as ``(Q_k - ro_k) * (1 / rd_k)``, an ulp away; that formula is not adopted.
 
 Dispatch: a CUDA tensor always launches the kernel of the packed mode (a
 failure raises; no mode falls back to another); a CPU tensor takes the
@@ -117,7 +133,11 @@ QUAD_PAD = 1e-4  # pad of a quad's box around its four corners
 # into the boxes (``_widen``).
 AAB_SLACK = 2.0 ** -16
 SPHERE_ERR = 2.0 ** -18
-N_TESTS = 3      # n_tests counters: sphere tests, quad tests, box slab tests
+# n_tests counters: sphere tests, quad tests (the general test), box or node
+# slab tests, axis-aligned quad tests (the specialised test of "none")
+N_TESTS = 4
+AAQ_COLS = 8     # aaq_tab: n_k D a_i qa b_j qb row live (aaq_tables)
+AAQ_GROUP_COLS = 5   # aaq_groups: start n k i j
 
 # The auto accel policy's crossover (the JAX package's BVH_MIN_PRIMS):
 # "none" up to 8192 primitives, "bvh" above.
@@ -157,6 +177,10 @@ class PackedScene:
     aab_tab: torch.Tensor | None = None
     aab_faces: torch.Tensor | None = None
     gen_rows: torch.Tensor | None = None
+    # "none": the axis-aligned quads by orientation (aaq_tables):
+    # [n_aaq, AAQ_COLS] f32 and the groups [n_groups, AAQ_GROUP_COLS] int32
+    aaq_tab: torch.Tensor | None = None
+    aaq_groups: torch.Tensor | None = None
 
 
 def _dot3(ax, ay, az, bx, by, bz):
@@ -226,10 +250,11 @@ def box_tables(data: SceneData, meta: SceneMeta):
     (aab_tab [n_box, 8] f32 = lo xyz, hi xyz of the six faces' padded
     corners (``quad_bounds``), max |lo|, |hi|, 0; aab_faces [n_box, 6]
     int32 face rows; gen_rows [n_gen] int32, the quad rows below
-    ``meta.n_quads`` that are no box's face, in registry order)."""
+    ``meta.n_quads`` of ``SceneMeta.aaq_class`` 9 — neither a box's face
+    (-2) nor axis-aligned (0-8, ``aaq_tables``) — in registry order)."""
     dev = data.quad_Q.device
     gen = [r for r in range(meta.n_quads)
-           if not meta.aaq_class or meta.aaq_class[r] != -2]
+           if not meta.aaq_class or meta.aaq_class[r] == 9]
     gen_rows = torch.tensor(gen, dtype=torch.int32, device=dev)
     faces = torch.tensor(meta.aab, dtype=torch.int32,
                          device=dev).reshape(-1, 6)
@@ -239,6 +264,76 @@ def box_tables(data: SceneData, meta: SceneMeta):
     scale = torch.maximum(lo.abs(), hi.abs()).amax(dim=1, keepdim=True)
     tab = torch.cat([lo, hi, scale, torch.zeros_like(scale)], dim=1)
     return tab.contiguous(), faces.contiguous(), gen_rows
+
+
+def aaq_groups_of(meta: SceneMeta) -> dict:
+    """{class: [registry rows]} of the axis-aligned surface quads
+    (``SceneMeta.aaq_class`` 0-8: u along axis class // 3, v along class %
+    3), the JAX package's ``aaq_groups_of``."""
+    groups = {}
+    for row, c in enumerate(meta.aaq_class):
+        if 0 <= c <= 8:
+            groups.setdefault(c, []).append(row)
+    return groups
+
+
+def aaq_tables(meta: SceneMeta, quad: torch.Tensor):
+    """The axis-aligned quads of "none" (the port of the JAX package's
+    ``pack_aaq``, whose groups it keeps, without its 8-row padding), from
+    ``quad``, the [Nq, QUAD_COLS] records of ``pack_scene``.
+
+    Returns (aaq_tab [n_aaq, AAQ_COLS] f32, aaq_groups [n_groups,
+    AAQ_GROUP_COLS] int32, general: the registry rows left to the general
+    test).  Group g is the rows [start, start + n) of the table, the quads
+    of one class in registry order, classes ascending; its normal lies
+    along axis k, u along i and v along j.  A row holds the operands of the
+    specialised test, n_k, D, a_i (of vxw), qa, b_j (of wxu), qb, then the
+    registry row (float32-exact below 2^24) and its live flag (the surface
+    flag: a skip row is never tested).  A quad of class 0-8 whose normal,
+    vxw or wxu has a nonzero off-axis component (a gradient step moved
+    ``quad_u`` or ``quad_v`` off the axes) is left to the general test: the
+    specialised test would not give its bits.  Finding those is one read of
+    the frames on the host."""
+    groups = aaq_groups_of(meta)
+    dev = quad.device
+    cand = [r for c in sorted(groups) for r in groups[c]]
+    exact = {}
+    if cand:
+        rec = quad[torch.tensor(cand, dtype=torch.int64, device=dev)]
+        cls = torch.tensor([c for c in sorted(groups) for _ in groups[c]],
+                           dtype=torch.int64, device=dev)
+        lane = torch.arange(len(cand), device=dev)
+        # the normal (cols 0-2) along k, vxw (4-6) along i, wxu (8-10)
+        # along j; every other component of the three must be exact zeros
+        i, j = cls // 3, cls % 3
+        on = torch.zeros((len(cand), QUAD_COLS), dtype=torch.bool,
+                         device=dev)
+        on[lane, 3 - i - j] = on[lane, 4 + i] = on[lane, 8 + j] = True
+        frame = torch.tensor([0, 1, 2, 4, 5, 6, 8, 9, 10], device=dev)
+        ok = ((rec == 0.0) | on)[:, frame].all(dim=1)
+        exact = dict(zip(cand, ok.tolist()))
+    rows, descs, general = [], [], []
+    for c in sorted(groups):
+        i, j = c // 3, c % 3
+        keep = [r for r in groups[c] if exact[r]]
+        general += [r for r in groups[c] if not exact[r]]
+        if keep:
+            descs.append((len(rows), len(keep), 3 - i - j, i, j))
+            rows += keep
+    if not rows:
+        return (torch.zeros((0, AAQ_COLS), dtype=torch.float32, device=dev),
+                torch.zeros((0, AAQ_GROUP_COLS), dtype=torch.int32,
+                            device=dev), general)
+    r = torch.tensor(rows, dtype=torch.int64, device=dev)
+    rec = quad[r]
+    k, i, j = torch.tensor([d[2:] for d in descs for _ in range(d[1])],
+                           dtype=torch.int64, device=dev).unbind(1)
+    lane = torch.arange(len(rows), device=dev)
+    tab = torch.stack([rec[lane, k], rec[:, 3], rec[lane, 4 + i], rec[:, 7],
+                       rec[lane, 8 + j], rec[:, 11], r.to(torch.float32),
+                       (rec[:, 12] != 0.0).to(torch.float32)], dim=1)
+    return (tab.contiguous(),
+            torch.tensor(descs, dtype=torch.int32, device=dev), general)
 
 
 def sphere_pad(scale, r):
@@ -357,12 +452,17 @@ def pack_scene(data: SceneData, meta: SceneMeta, qf: QuadFrames,
         qf.qb[:, None], data.quad_surface.to(torch.float32)[:, None],
     ], dim=1).contiguous()
     accel_tab, n_accel = None, 0
-    aab_tab = aab_faces = gen_rows = None
+    aab_tab = aab_faces = gen_rows = aaq_tab = aaq_groups = None
     # traversal decisions are not differentiable (the JAX package's
-    # stop_gradient on its boxes and tree)
+    # stop_gradient on its boxes and tree); the backward recomputes a
+    # winning axis-aligned quad's t from its record in ``quad``
     with torch.no_grad():
         if accel == "none":
             aab_tab, aab_faces, gen_rows = box_tables(data, meta)
+            aaq_tab, aaq_groups, general = aaq_tables(meta, quad)
+            if general:
+                gen_rows = torch.cat([gen_rows, torch.tensor(
+                    general, dtype=torch.int32, device=gen_rows.device)])
         elif accel == "cull":
             accel_tab = cull_boxes(data, meta)
             n_accel = accel_tab.shape[0]
@@ -376,7 +476,8 @@ def pack_scene(data: SceneData, meta: SceneMeta, qf: QuadFrames,
                        n_sph_sub=_n_sph_sub(data, meta) if accel == "cull"
                        else 0, n_accel=n_accel,
                        aab_tab=aab_tab, aab_faces=aab_faces,
-                       gen_rows=gen_rows)
+                       gen_rows=gen_rows, aaq_tab=aaq_tab,
+                       aaq_groups=aaq_groups)
 
 
 def stack_rays(ro: V3, rd: V3, time: torch.Tensor) -> torch.Tensor:
@@ -471,10 +572,10 @@ def _check(name, x, dtype, device, ndim, cols=None):
 def _launch(packed: PackedScene, rays: torch.Tensor, t_min: float,
             n_tests: torch.Tensor | None = None):
     """Launch the forward kernel of ``packed.accel``; returns the [32, R]
-    output.  ``n_tests``: an optional int64 [3] card tensor to which the
-    launch adds the sphere tests, quad tests and box slab tests it performs
-    (rows whose surface flag is 0 are not tests); the results do not depend
-    on it."""
+    output.  ``n_tests``: an optional int64 [N_TESTS] card tensor to which
+    the launch adds the sphere tests, general quad tests, box or node slab
+    tests and specialised axis-aligned quad tests it performs (rows whose
+    surface flag is 0 are not tests); the results do not depend on it."""
     from .._build import load_library
 
     dev = rays.device
@@ -510,18 +611,24 @@ def _launch(packed: PackedScene, rays: torch.Tensor, t_min: float,
                 or tab.shape[0] != n_acc):
             raise ValueError("closest_hit: inconsistent accel table")
         accel_ptr = tab.data_ptr()
-    n_box = n_gen = 0
-    box_ptrs = (0, 0, 0)
+    n_box = n_gen = n_aaq = n_grp = 0
+    box_ptrs, aaq_ptrs = (0, 0, 0), (0, 0)
     if accel == "none":
         tab, faces, gen = packed.aab_tab, packed.aab_faces, packed.gen_rows
         _check("aab_tab", tab, torch.float32, dev, 2, BOX_COLS)
         _check("aab_faces", faces, torch.int32, dev, 2, 6)
         _check("gen_rows", gen, torch.int32, dev, 1)
+        aaq, grp = packed.aaq_tab, packed.aaq_groups
+        _check("aaq_tab", aaq, torch.float32, dev, 2, AAQ_COLS)
+        _check("aaq_groups", grp, torch.int32, dev, 2, AAQ_GROUP_COLS)
         n_box, n_gen = tab.shape[0], gen.shape[0]
-        if (faces.shape[0] != n_box or n_gen + 6 * n_box > packed.n_quad
-                or tab.data_ptr() % 16):
+        n_aaq, n_grp = aaq.shape[0], grp.shape[0]
+        if (faces.shape[0] != n_box
+                or n_gen + 6 * n_box + n_aaq > packed.n_quad
+                or tab.data_ptr() % 16 or aaq.data_ptr() % 16):
             raise ValueError("closest_hit: inconsistent box table")
         box_ptrs = (tab.data_ptr(), faces.data_ptr(), gen.data_ptr())
+        aaq_ptrs = (aaq.data_ptr(), grp.data_ptr())
     count_ptr = 0
     if n_tests is not None:
         _check("n_tests", n_tests, torch.int64, dev, 1)
@@ -543,7 +650,7 @@ def _launch(packed: PackedScene, rays: torch.Tensor, t_min: float,
             packed.joined.data_ptr(), k_join, packed.quad_base,
             ctypes.c_float(t_min), _MODE[accel], accel_ptr,
             packed.n_sph_sub, packed.n_accel, *box_ptrs, n_box, n_gen,
-            out.data_ptr(), count_ptr, stream)
+            *aaq_ptrs, n_aaq, n_grp, out.data_ptr(), count_ptr, stream)
     if rc != 0:
         raise RuntimeError(
             f"closest_hit kernel launch failed ({accel}): CUDA error {rc} "

@@ -189,14 +189,21 @@ def render_wavefront(data: SceneData, meta: SceneMeta, cam: Camera,
                      pool=None, max_paths_per_call=200_000_000, fb=None,
                      task_range=None, scrub_nan=True, window=None, spt=None,
                      use_kernel=None, accel=None, mesh=None,
-                     return_stats=False):
+                     layer_range=None, return_stats=False):
     """Wavefront render on ``device``; returns linear [H,W,3] float32
     (row 0 = bottom).
 
     The task space — W*H pixels x ceil(spp/spt) sample-chunks — is split
-    into spans of at most ``max_paths_per_call`` camera paths.  ``fb`` /
+    into spans of at most ``max_paths_per_call`` camera paths.  ``fb`` (a
+    tensor or a numpy array of W*H x 3 floats, copied onto ``device``) /
     ``task_range`` (in chunk-task units) allow external accumulation; pass
     ``scrub_nan=False`` to get the raw accumulator back.
+
+    ``layer_range`` (in sample-chunk layers: layer c is the tasks
+    [c*W*H, (c+1)*W*H)) replaces ``task_range`` for progressive
+    accumulation; spans are then layer-aligned, so each pixel deposits
+    exactly once per layer and a resumed render is bit-identical to an
+    uninterrupted one.
 
     ``use_kernel``: None (default) runs the CUDA closest-hit kernel on a
     CUDA device and its plain version on the CPU; False forces the plain
@@ -242,14 +249,23 @@ def render_wavefront(data: SceneData, meta: SceneMeta, cam: Camera,
     if fb is None:
         fb = torch.zeros((WH, 3), dtype=torch.float32, device=device)
     else:
-        fb = fb.reshape(WH, 3).to(device=device, dtype=torch.float32,
-                                  copy=True)
+        fb = torch.as_tensor(fb).reshape(WH, 3).to(
+            device=device, dtype=torch.float32, copy=True)
     tasks_per_call = max(pool, max_paths_per_call // spt)
-    start, end = task_range if task_range is not None else (0, WH * n_chunks)
+    if layer_range is not None:
+        if task_range is not None:
+            raise ValueError("layer_range and task_range are exclusive")
+        spans = [(s0, min(s0 + tasks_per_call, (c + 1) * WH))
+                 for c in range(*layer_range)
+                 for s0 in range(c * WH, (c + 1) * WH, tasks_per_call)]
+    else:
+        start, end = (task_range if task_range is not None
+                      else (0, WH * n_chunks))
+        spans = [(s0, min(s0 + tasks_per_call, end))
+                 for s0 in range(start, end, tasks_per_call)]
 
     stats = {"iterations": 0, "useful_segments": 0, "slots_executed": 0}
-    for s0 in range(start, end, tasks_per_call):
-        s1 = min(s0 + tasks_per_call, end)
+    for s0, s1 in spans:
         iters, useful = _span_core(
             data, meta, cam, int(seed), fb, s0, s1, pool=int(pool),
             window=int(window), spt=int(spt), use_kernel=bool(use_kernel),

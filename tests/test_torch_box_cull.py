@@ -4,9 +4,11 @@
 (and of ``pack_quads_general``'s row list): its face rows must equal JAX's,
 and its padded boxes must contain JAX's within 2e-4.
 
-The CUDA "none" kernel scans the spheres, then the quads that are no box's
-face (``gen_rows``), then each closed box behind a widened slab test, testing
-a box's six faces only where the ray enters it under its running bound.
+The CUDA "none" kernel scans the spheres, then the general quads
+(``gen_rows``) and the axis-aligned ones (``aaq_tab``, whose specialised
+test gives the general test's bits: test_torch_aaq.py), then each closed
+box behind a widened slab test, testing a box's six faces only where the
+ray enters it under its running bound.
 ``_box_cull_mirror`` below is that schedule in plain torch: it must equal
 ``closest_hit_reference`` (every primitive tested) bit for bit, and every
 winning face's box must have been entered.  The rays graze box edges and
@@ -51,9 +53,11 @@ def test_box_tables_equal_jax_pack_aab():
     assert (j_lo - lo <= 2e-4).all() and (hi - j_hi <= 2e-4).all()
     np.testing.assert_array_equal(
         tab[:, 6], np.maximum(np.abs(lo), np.abs(hi)).max(axis=1))
-    # the quads outside every box, in registry order: the lamp
+    # the quads outside every box: the lamp, axis-aligned, so no general
+    # quad is left
     rows = [r for r, c in enumerate(jmeta.aaq_class) if c != -2]
-    np.testing.assert_array_equal(gen.numpy(), rows)
+    assert rows == [r for rs in ch.aaq_groups_of(meta).values() for r in rs]
+    assert gen.numel() == 0
     assert len(rows) + 6 * 36 == meta.n_quads
 
 
@@ -63,7 +67,12 @@ def test_box_tables_without_boxes_list_every_quad():
     tab, faces, gen = ch.box_tables(data, meta)
     assert meta.aab == () and tab.shape == (0, ch.BOX_COLS)
     assert faces.shape == (0, 6)
-    np.testing.assert_array_equal(gen.numpy(), np.arange(meta.n_quads))
+    # the general quads and the axis-aligned ones list every quad
+    aaq = [r for rs in ch.aaq_groups_of(meta).values() for r in rs]
+    assert len(aaq) == 6
+    np.testing.assert_array_equal(np.sort(np.concatenate([gen.numpy(),
+                                                          aaq])),
+                                  np.arange(meta.n_quads))
 
 
 def _quad_t(packed, rays, rows):
@@ -116,7 +125,7 @@ def _box_cull_mirror(packed, rays):
     row = ch.closest_hit_reference(dataclasses.replace(packed, n_quad=0),
                                    rays)
     st, s_idx = row[ch.ROW_T], row[ch.ROW_IDX].long()
-    gen = packed.gen_rows.long()
+    gen = torch.cat([packed.gen_rows.long(), packed.aaq_tab[:, 6].long()])
     qt = torch.full((R,), INF)
     qi = torch.zeros(R, dtype=torch.long)
     if gen.numel():

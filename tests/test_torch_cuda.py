@@ -170,9 +170,11 @@ def test_none_box_cull_equals_plain_on_edge_rays(box_world, n):
     torch.cuda.synchronize()
     assert ch.launch_count["none"] == before + 2
     assert torch.equal(got, want) and torch.equal(counted, want)
-    n_s, n_q, n_b = counts.tolist()
+    n_s, n_q, n_b, n_a = counts.tolist()
     surf_q = int((packed.quad[:packed.n_quad, 12] != 0).sum())
-    assert n_s == n * packed.n_sph and n_b == n * 36 and n_q <= n * surf_q
+    assert n_s == n * packed.n_sph and n_b == n * 36
+    # the lamp, the one quad outside the boxes, takes the axis-aligned path
+    assert n_a == n and n_q + n_a <= n * surf_q
 
 
 @pytest.fixture(scope="module")
@@ -200,7 +202,7 @@ def bvh_sets():
 
 def _counted_equals_plain(packed, rays):
     """The kernel bit-equal to the plain version, its counted launch too;
-    returns the (sphere, quad, slab) tests counted."""
+    returns the (sphere, quad, slab, axis-aligned quad) tests counted."""
     want = ch.closest_hit_reference(packed, rays)
     before = ch.launch_count[packed.accel]
     got = ch._launch(packed, rays, ch.T_MIN)
@@ -219,8 +221,9 @@ def test_bvh_equals_plain(bvh_sets, case, n):
     its counted launch too, and the tree prunes: a ray tests a few rows."""
     packed, rays = bvh_sets[case]
     packed = packed["bvh"]
-    n_s, n_q, n_b = _counted_equals_plain(packed, rays[:, :n].contiguous())
-    assert n_b > 0 and n_b % 2 == 0
+    n_s, n_q, n_b, n_a = _counted_equals_plain(packed,
+                                               rays[:, :n].contiguous())
+    assert n_b > 0 and n_b % 2 == 0 and n_a == 0
     assert n_s + n_q < 0.05 * n * (packed.n_sph + packed.n_quad)
 
 
@@ -229,9 +232,59 @@ def test_cull_equals_plain_on_silhouettes(bvh_sets, n):
     """The "cull" kernel, whose boxes are widened as "bvh"'s are, bit-equal
     to the plain version on the rays grazing scene 1's silhouettes."""
     packed, rays = bvh_sets["silhouettes"]
-    n_s, n_q, n_b = _counted_equals_plain(packed["cull"],
-                                          rays[:, :n].contiguous())
-    assert 0 < n_s < n * packed["cull"].n_sph and n_q == n_b == 0
+    n_s, n_q, n_b, n_a = _counted_equals_plain(packed["cull"],
+                                               rays[:, :n].contiguous())
+    assert 0 < n_s < n * packed["cull"].n_sph and n_q == n_b == n_a == 0
+
+
+@pytest.fixture(scope="module")
+def aaq_sets():
+    """Scenes 5 and 6 packed "none" on the card, each with 2^16 camera and
+    bounce rays of its camera and 2^16 of chip_smoke.py's rays at the
+    window edges of its axis-aligned quads (15% with a direction component
+    under 1e-8)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "False)")
+    from chip_smoke import window_edge_rays
+
+    dev = require_cuda()
+    out = {}
+    for idx in (5, 6):
+        world, cam = sc.build_scene(idx)
+        data, meta = world.compile()
+        packed = _packed(world, dev)
+        ro, rd, tme = _camera_rays((world, cam), 1 << 15, dev)
+        rays = ch.stack_rays(ro, rd, tme)
+        t = ch.closest_hit_reference(packed, rays)[ch.ROW_T]
+        g = np.random.RandomState(idx)
+        bounce = torch.cat([rays[0:3] + rays[3:6] * t, torch.from_numpy(
+            g.randn(3, rays.shape[1]).astype(np.float32)).to(dev), rays[6:]])
+        bounce = bounce[:, torch.isfinite(t)]
+        out[f"scene{idx}"] = (packed, torch.cat([rays, bounce], 1)[
+            :, :1 << 16].contiguous())
+        out[f"scene{idx}_edges"] = (packed, window_edge_rays(
+            data, meta, cam.lookfrom, 1 << 16, 20 + idx).to(dev))
+    return out
+
+
+@pytest.mark.parametrize("n", [1, 255, 4096, 1 << 16])
+@pytest.mark.parametrize("case", ["scene5", "scene5_edges", "scene6",
+                                  "scene6_edges"])
+def test_none_aaq_equals_plain(aaq_sets, case, n):
+    """The "none" kernel's axis-aligned quad path, bit-equal to the plain
+    version at ragged counts, its counted launch too: on scene 5 every
+    quad test is an axis-aligned one."""
+    packed, rays = aaq_sets[case]
+    n = min(n, rays.shape[1])
+    n_s, n_q, n_b, n_a = _counted_equals_plain(packed,
+                                               rays[:, :n].contiguous())
+    n_aaq = packed.aaq_tab.shape[0]
+    assert n_a == n * n_aaq and n_b == 0
+    if case.startswith("scene5"):
+        assert n_aaq == 5 and n_q == 0 and n_s == 0
+    else:
+        assert n_aaq == 6 and n_q == n * packed.gen_rows.numel()
 
 
 def test_wrapper_rejects_bad_inputs(dev):
@@ -331,3 +384,53 @@ def test_train_step_card_vs_cpu(dev):
         # bit, and the sums run in another order
         torch.testing.assert_close(g.cpu(), c_grads[k], rtol=1e-3,
                                    atol=1e-5 * scale)
+
+
+def test_progressive_resume_bit_identical_on_card(dev, tmp_path):
+    """The progressive wavefront on the card, interrupted after one step and
+    resumed from its checkpoint in a fresh call, equals the uninterrupted
+    render bit for bit: layer-aligned spans deposit each pixel once per
+    layer, so index_add_ never adds one pixel twice in a call."""
+    from mort_tpu_torch.render.progressive import (
+        load_state, render_progressive_wavefront,
+    )
+
+    world, cam = sc.cornell_box()
+    data, meta = world.compile()
+    cam = cam.replace(image_width=48, image_height=48, sqrt_spp=3,
+                      bounce_limit=8)
+    before = ch.launch_count["none"]
+    full = render_progressive_wavefront(data, meta, cam, spt=3)
+    assert ch.launch_count["none"] > before
+    ckpt = str(tmp_path / "wf.npz")
+
+    class Stop(BaseException):
+        pass
+
+    def stop(state):
+        raise Stop
+
+    with pytest.raises(Stop):
+        render_progressive_wavefront(data, meta, cam, spt=3,
+                                     checkpoint_path=ckpt, on_step=stop)
+    state = load_state(ckpt)
+    assert state.samples_done == 3
+    resumed = render_progressive_wavefront(data, meta, cam, spt=3,
+                                           state=state)
+    assert np.isfinite(full.fb).all() and np.array_equal(resumed.fb,
+                                                         full.fb)
+
+
+def test_cli_render_on_card(dev, tmp_path, capsys):
+    """``cli render`` without --device runs on the card and writes a finite
+    image (the kernel launched)."""
+    from mort_tpu_torch import cli
+
+    out = str(tmp_path / "s5.npz")
+    before = ch.launch_count["none"]
+    rec = cli.main(["render", "5", "--width", "48", "--spp", "4",
+                    "--depth", "8", "--out", out])
+    img = np.load(out)["image"]
+    assert ch.launch_count["none"] > before
+    assert img.shape == (48, 48, 3) and np.isfinite(img).all()
+    assert 0.0 < float(img.mean()) < 2.0 and rec["paths"] == 48 * 48 * 4

@@ -119,6 +119,9 @@ def test_port_imports_without_jax():
         "import mort_tpu_torch.render.integrator\n"
         "import mort_tpu_torch.render.renderer\n"
         "import mort_tpu_torch.parallel.sharding\n"
+        "import mort_tpu_torch.render.progressive\n"
+        "import mort_tpu_torch.io.image, mort_tpu_torch.metrics\n"
+        "import mort_tpu_torch.cli, mort_tpu_torch.interactive\n"
         "bad =[m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'mort_tpu')]\n"
         "assert not bad, bad\n"
