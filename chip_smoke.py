@@ -8,8 +8,9 @@ Phases, one line each or more (any failure raises and exits non-zero):
 1. card: the device, its name and power limit (nvidia-smi), versions;
 2. build: nvcc-compiles csrc/closest_hit.cu (or loads it from the build
    cache) and reports the seconds, each kernel's registers, spills and
-   shared memory (``-Xptxas -v``) and the static SASS instruction mix of
-   the "none" and "bvh" kernels (``cuobjdump -sass``);
+   shared memory (``-Xptxas -v``), the static SASS instruction mix of
+   the "none" and "bvh" kernels (``cuobjdump -sass``), and no float atomic
+   in the backward's six kernels;
 3. philox: the pinned Philox vector of tests/test_rng.py, on the card;
 4. parity: the CUDA closest-hit kernel in each accel mode ("none", "bvh",
    "cull") against its plain PyTorch version on the same card tensors, on
@@ -47,11 +48,15 @@ Phases, one line each or more (any failure raises and exits non-zero):
    before and read just after, rendered once more under ``torch.profiler``
    for the "bvh" kernel's share of device time; and at 160x90, kernel
    against plain by the image rule;
-9. backward parity: the CUDA backward kernel (the gradient of the closest
-   hit) against its plain version on phase 4's four ray sets with random
-   cotangents — d_rays bit-equal, the atomically summed table gradients
-   within BWD_SUM_RTOL of the sum of |terms| per entry — and timed on
-   scene 1's rays at the train step's config (R = 202,800);
+9. backward parity: the CUDA backward kernels (the gradient of the closest
+   hit) against their plain versions on phase 4's four ray sets with random
+   cotangents, on the train step's rays and on a bounce captured from a
+   real train step — three launches bit-identical, d_rays and the table
+   gradients bit-equal to ``closest_hit_bwd_ordered`` (the plain mirror of
+   their order of adds), d_rays bit-equal to ``closest_hit_bwd_reference``
+   and the tables within BWD_SUM_RTOL of its sum of |terms| per entry —
+   and timed on scene 1's rays at the train step's config (R = 202,800)
+   and on the captured bounce;
 10. main path, the train step: ``make_train_step`` on scene 1 at
    ``bench.py --grad``'s config (600x338, 4 spp, depth 8), one warm-up step
    and three timed ones, launch counts reset just before and read just
@@ -106,7 +111,9 @@ from mort_tpu_torch import (  # noqa: E402
 )
 from mort_tpu_torch import _build, rng  # noqa: E402
 from mort_tpu_torch.device import card_line  # noqa: E402
-from mort_tpu_torch.profile_wavefront import device_times  # noqa: E402
+from mort_tpu_torch.profile_wavefront import (  # noqa: E402
+    _device_us, device_times,
+)
 from mort_tpu_torch.camera import derive_basis, get_rays_soa  # noqa: E402
 from mort_tpu_torch.render import closest_hit as ch  # noqa: E402
 from mort_tpu_torch.render.hitshade import finalize_and_shade  # noqa: E402
@@ -153,13 +160,14 @@ SLEEP_CYCLES = 5_000_000
 # and d_rays (33); a quad lane its t (13), the four record terms (10) and
 # d_rays (9)
 BWD_SPHERE_OPS, BWD_QUAD_OPS = 130, 32
-# The backward kernel's table gradients are float32 sums taken in atomic
-# order, which changes from run to run, against the plain version's
-# index_add_: they are held within BWD_SUM_RTOL of the sum of |terms| of
-# each entry (float32 summation of n terms in two orders differs by about
-# sqrt(n) * 6e-8 of that sum for random rounding; 2^17 terms on one
-# entry give ~2e-5).
+# The backward kernels' table gradients are float32 sums in a fixed order
+# of pairwise trees, bit-equal to closest_hit_bwd_ordered; against the
+# plain version's index_add_ order they are held within BWD_SUM_RTOL of the
+# sum of |terms| of each entry (float32 summation of n terms in two orders
+# differs by about sqrt(n) * 6e-8 of that sum for random rounding; 2^17
+# terms on one entry give ~2e-5).
 BWD_SUM_RTOL = 1e-4
+BWD_OUTS = ("d_rays", "d_sph", "d_quad", "d_joined")
 GRAD_W, GRAD_H = 600, 338   # bench.py --grad's train step config
 GRAD_SEEDS = (69420, 69421, 69422, 69423)   # warm-up, then three timed
 
@@ -182,7 +190,8 @@ def assert_images_close(got, want, frac_ok=0.98, atol=2e-2, mean_tol=4e-3):
 
 def kernel_label(mangled):
     """closest_hit_none_kernel<false, 2> from its mangled name."""
-    m = re.search(r"closest_hit_(?:none_|cull_|bvh_|bwd_)?kernel", mangled)
+    m = re.search(r"closest_hit_(?:none_|cull_|bvh_|bwd_[a-z]+_)?kernel",
+                  mangled)
     if m is None:
         return mangled
     rest = mangled[m.end():]
@@ -218,6 +227,29 @@ SASS_CLASSES = ("LDS", "LDG", "STG", "LDL", "STL", "FADD", "FMUL", "FFMA",
                 "MUFU", "FSETP", "FMNMX", "SHFL", "LDGSTS", "BAR")
 
 
+def sass_text(name):
+    """``cuobjdump -sass`` of the built library ``name``."""
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()),
+                             "cuobjdump")
+    return subprocess.run([cuobjdump, "-sass",
+                           str(_build.library_path(name))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+
+
+def float_atomics(name, kernel="closest_hit_bwd_"):
+    """{label: float atomic instructions (RED or ATOM on .F32, .F64 or
+    .FTZ.RN operands)} of the kernels of ``name`` whose label starts with
+    ``kernel``, from their SASS."""
+    out = {}
+    for block in sass_text(name).split("Function : ")[1:]:
+        label = kernel_label(block.split(None, 1)[0])
+        if label.startswith(kernel):
+            out[label] = len(re.findall(
+                r"\b(?:RED|ATOM|ATOMG)\.[A-Z0-9.]*(?:F32|F64|FTZ)", block))
+    return out
+
+
 def sass_mix(name, kernel="closest_hit_none_kernel<false"):
     """{(kernel, part): {opcode class: count}}: the static SASS instruction
     mix of the kernels of ``name`` whose label starts with ``kernel``
@@ -226,14 +258,8 @@ def sass_mix(name, kernel="closest_hit_none_kernel<false"):
     "loop 0x<first>-0x<last>": the instructions from a backward branch's
     target to the branch, where no other such loop lies inside).
     Instructions predicated off for good (``@!PT``) are not counted."""
-    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()),
-                             "cuobjdump")
-    text = subprocess.run([cuobjdump, "-sass",
-                           str(_build.library_path(name))],
-                          capture_output=True, text=True, timeout=120,
-                          check=True).stdout
     mix = {}
-    for block in text.split("Function : ")[1:]:
+    for block in sass_text(name).split("Function : ")[1:]:
         label = kernel_label(block.split(None, 1)[0])
         if not label.startswith(kernel):
             continue
@@ -751,29 +777,75 @@ def bwd_args(scene, rays, fwd, dt, drow):
             tuple(p.joined.shape), p.quad_base, T_MIN)
 
 
-def compare_bwd(name, args):
-    """The backward kernel against its plain version on the same card
-    tensors: d_rays bit-equal (each lane's value is the same rounded ops),
-    d_sph, d_quad and d_joined within BWD_SUM_RTOL of each entry's sum of
-    |terms|.  Returns (largest |difference|, largest |difference| / sum of
-    |terms|)."""
-    got = ch._launch_bwd(*args)
+def exact_sums(args):
+    """d_sph, d_quad and d_joined in float64: the float32 terms of every
+    lane (the plain version's, which the kernels' equal) summed in float64,
+    the yardstick of a float32 sum's own rounding."""
+    rays, kind, idx, dt, drow, sph, quad, shape, quad_base, t_min = args
+    _d, (s, js, ts), (q, jq, tq) = ch._bwd_lane_terms(
+        rays, kind, idx, dt, drow, sph, quad, t_min)
+    f64 = dict(dtype=torch.float64, device=rays.device)
+    d_sph = torch.zeros(sph.shape, **f64)
+    d_quad = torch.zeros(quad.shape, **f64)
+    d_joined = torch.zeros(shape, **f64)
+    d_sph[:, :ch.REC_TERMS] = torch.zeros_like(
+        d_sph[:, :ch.REC_TERMS]).index_add_(0, js, ts.double())
+    d_quad[:, :4] = torch.zeros_like(d_quad[:, :4]).index_add_(
+        0, jq, tq.double())
+    lanes = (kind != 0).nonzero().squeeze(1)
+    key = torch.where(kind == K_QUAD, idx + quad_base, idx)[lanes].long()
+    d_joined.index_add_(0, key, drow[:shape[1], lanes].T.double())
+    return d_sph, d_quad, d_joined
+
+
+def compare_bwd(name, args, plain=True):
+    """The backward kernels against their plain versions on the same card
+    tensors: three launches bit-identical; d_rays and the three tables
+    bit-equal to ``closest_hit_bwd_ordered``, the plain mirror of their
+    order of adds; d_rays bit-equal to ``closest_hit_bwd_reference`` (the
+    same ops a lane); the tables within BWD_SUM_RTOL of each entry's sum of
+    |terms| of the same terms summed in float64 (``exact_sums``) and, with
+    ``plain``, of the plain version's float32 index_add_ order.  Returns
+    (largest |difference| from the plain version, that / sum of |terms|,
+    the kernels' and the plain version's largest |difference| from the
+    float64 sums / sum of |terms|)."""
+    runs = [ch._launch_bwd(*args) for _ in range(3)]
+    ordered = ch.closest_hit_bwd_ordered(*args)
     want = ch.closest_hit_bwd_reference(*args)
     scale = ch.closest_hit_bwd_reference(*args, absolute=True)
+    exact = exact_sums(args)
     torch.cuda.synchronize()
+    got = runs[0]
+    for n, again in enumerate(runs[1:], 2):
+        for what, g, a in zip(BWD_OUTS, got, again):
+            assert torch.equal(g, a), \
+                f"{name}: launch {n}'s {what} differs from launch 1's"
+    for what, g, o in zip(BWD_OUTS, got, ordered):
+        assert torch.equal(g, o), (
+            f"{name}: {what} differs from closest_hit_bwd_ordered at "
+            f"{int((g != o).sum())} entries")
     assert torch.equal(got[0], want[0]), f"{name}: d_rays differ"
-    err, rel = 0.0, 0.0
-    for what, g, w, s in zip(("d_sph", "d_quad", "d_joined"), got[1:],
-                             want[1:], scale[1:]):
+    err, rel, rel_exact, rel_plain = 0.0, 0.0, 0.0, 0.0
+    for what, g, w, s, x in zip(BWD_OUTS[1:], got[1:], want[1:], scale[1:],
+                                exact):
+        if not g.numel():
+            continue
+        s = s.clamp_min(1e-30)
         diff = (g - w).abs()
-        if diff.numel():
-            err = max(err, float(diff.max()))
-            rel = max(rel, float((diff / s.clamp_min(1e-30)).max()))
-        bad = int((diff > BWD_SUM_RTOL * s).sum())
+        err = max(err, float(diff.max()))
+        rel = max(rel, float((diff / s).max()))
+        off = (g.double() - x).abs() / s
+        rel_exact = max(rel_exact, float(off.max()))
+        rel_plain = max(rel_plain, float(((w.double() - x).abs() / s).max()))
+        bad = int((off > BWD_SUM_RTOL).sum())
+        assert bad == 0, (f"{name}: {what} differs from the float64 sums "
+                          f"beyond {BWD_SUM_RTOL} of the sum of |terms| at "
+                          f"{bad} entries")
+        bad = int((diff > BWD_SUM_RTOL * s).sum()) if plain else 0
         assert bad == 0, (f"{name}: {what} differs beyond {BWD_SUM_RTOL} of "
                           f"the sum of |terms| at {bad} entries (largest "
                           f"ratio {rel:.3e})")
-    return err, rel
+    return err, rel, rel_exact, rel_plain
 
 
 def bwd_bound_ms(args):
@@ -797,22 +869,82 @@ def bwd_bound_ms(args):
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
+def bwd_runs(args):
+    """(runs, bytes): the (tile, key) pairs of the hit lanes, each a run of
+    REC_TERMS + k_join sums the tile kernel writes and the reduce kernel
+    reads back, with its key and slot: the kernels' traffic beyond the
+    bound, not part of it."""
+    _rays, kind, idx, *_rest = args
+    n_join, k_join = args[7]
+    lanes = ((kind == K_SPHERE) | (kind == K_QUAD)).nonzero().squeeze(1)
+    key = torch.where(kind == K_QUAD, idx + args[8], idx)[lanes].long()
+    runs = int(torch.unique(lanes // ch.BWD_TILE * n_join + key).numel())
+    return runs, runs * 4 * (2 * (ch.REC_TERMS + k_join) + 3)
+
+
+def bwd_split(args, calls=20):
+    """{kernel: device us a call} of the backward's kernels and memset,
+    from torch.profiler over ``calls`` calls."""
+    for _ in range(3):
+        ch._launch_bwd(*args)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            ch._launch_bwd(*args)
+        torch.cuda.synchronize()
+    kernels = device_times(prof)[0]
+    return {(re.search(r"closest_hit_bwd_\w+", e.key) or e).group(0)
+            if "closest_hit_bwd_" in e.key else e.key[:40]:
+            _device_us(e) / calls for e in kernels}
+
+
+def capture_step_bounce(dev):
+    """The backward's operands in one bounce of a real train step (scene 1
+    at bench.py --grad's config, seed GRAD_SEEDS[0]), captured from
+    ``_ClosestHit.backward``: of the step's 32 calls, the one with the most
+    hit lanes."""
+    world, cam = sc.random_spheres()
+    data, meta = world.compile()
+    cam = cam.replace(image_width=GRAD_W, image_height=GRAD_H, sqrt_spp=2,
+                      bounce_limit=8)
+    target = np.zeros((GRAD_H, GRAD_W, 3), np.float32)
+    best = {"hits": -1}
+    launch = ch._launch_bwd
+
+    def capture(*args):
+        hits = int((args[1] > 0).sum())
+        if hits > best["hits"]:
+            best.update(hits=hits, args=tuple(
+                a.clone() if torch.is_tensor(a) else a for a in args))
+        return launch(*args)
+
+    ch._launch_bwd = capture
+    try:
+        float(make_train_step(meta)(data, cam, target, GRAD_SEEDS[0])[0])
+    finally:
+        ch._launch_bwd = launch
+    return best["args"]
+
+
 def backward_parity_and_timing(dev, card, sets):
     """Phase 9.  Returns the closest_hit_bwd record at the train step's
-    shapes (scene 1, R = 202,800)."""
+    shapes (scene 1, R = 202,800, random cotangents)."""
     err = 0.0
     for k, (name, (scene, rays, fwd)) in enumerate(sets.items()):
         args = bwd_args(scene, rays, fwd, *random_cotangents(
             rays.shape[1], dev, 10 + k))
-        e, rel = compare_bwd(f"{name}/bwd", args)
+        e, rel, r64, p64 = compare_bwd(f"{name}/bwd", args)
         err = max(err, e)
         log(f"bwd parity {name}: R={rays.shape[1]} "
-            f"hits={int((args[1] > 0).sum())} d_rays bit-equal; table sums "
-            f"max |diff| {e:.3e}, max |diff| / sum|terms| {rel:.3e} (limit "
-            f"{BWD_SUM_RTOL})")
+            f"hits={int((args[1] > 0).sum())} three launches bit-identical, "
+            f"d_rays and tables bit-equal to the ordered mirror; table sums "
+            f"against the plain version max |diff| {e:.3e}, max |diff| / "
+            f"sum|terms| {rel:.3e} (limit {BWD_SUM_RTOL}); from the float64 "
+            f"sums: kernels {r64:.3e}, plain {p64:.3e}")
     # the train step's first bounce: every pixel's camera ray, sample 0
-    s1 = sets["scene1"][0]
-    _w, cam = sc.random_spheres()
+    world1, cam = sc.random_spheres()
+    s1 = sets["scene1"][0] if "scene1" in sets else Scene(world1, dev)
     cam = cam.replace(image_width=GRAD_W, image_height=GRAD_H, sqrt_spp=2,
                       bounce_limit=8).to(dev)
     R = GRAD_W * GRAD_H
@@ -822,21 +954,53 @@ def backward_parity_and_timing(dev, card, sets):
     rays = ch.stack_rays(ro, rd, tme)
     fwd = ch._launch(s1.packed["none"], rays, T_MIN)
     args = bwd_args(s1, rays, fwd, *random_cotangents(R, dev, 9))
-    e, rel = compare_bwd("scene1 grad/bwd", args)
+    e, rel, r64, p64 = compare_bwd("scene1 grad/bwd", args)
     err = max(err, e)
+    log(f"bwd parity scene1 grad: max |diff| / sum|terms| {rel:.3e} from "
+        f"the plain version; from the float64 sums: kernels {r64:.3e}, "
+        f"plain {p64:.3e}")
     ms = time_ms(lambda: ch._launch_bwd(*args))
     ms_b2b = time_ms(lambda: ch._launch_bwd(*args), calls=10)
     plain = time_ms(lambda: ch.closest_hit_bwd_reference(*args), reps=5,
                     warmup=1)
+    ordered = time_ms(lambda: ch.closest_hit_bwd_ordered(*args), reps=3,
+                      warmup=1)
     b, by = bwd_bound_ms(args)
+    runs, run_bytes = bwd_runs(args)
+    log(f"bwd kernels scene1 grad, device us a call under torch.profiler: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in bwd_split(args).items()))
     hits = int((args[1] > 0).sum())
     ground = int((args[2][args[1] == K_SPHERE] == int(torch.argmax(
         s1.data.sph_radius))).sum())
     log(f"bwd timing scene1 grad R={R} ({hits} hits, {ground} on the ground "
-        f"sphere): kernel {ms:.4f} ms, back to back {ms_b2b:.4f} ms, plain "
-        f"{plain:.4f} ms, bound {b:.4f} ms by {by} | {card}")
+        f"sphere), random cotangents: kernels {ms:.4f} ms, back to back "
+        f"{ms_b2b:.4f} ms, plain {plain:.4f} ms, ordered mirror "
+        f"{ordered:.4f} ms, bound {b:.4f} ms by {by}; {runs} runs, "
+        f"{run_bytes / 1e6:.3f} MB of run traffic beside the bound | {card}")
+    # a bounce of a real step: its cotangents are zero on ended paths
+    step = capture_step_bounce(dev)
+    # a real bounce's cotangents share a sign over many lanes of a key, and
+    # the plain version's one float32 accumulator rounds them with a bias
+    # that the pairwise trees do not have (PERF.md): both are held to
+    # the float64 sums here, only the kernels within BWD_SUM_RTOL
+    e, rel, r64, p64 = compare_bwd("scene1 step bounce/bwd", step,
+                                   plain=False)
+    ms_step = time_ms(lambda: ch._launch_bwd(*step), calls=10)
+    b_step, by_step = bwd_bound_ms(step)
+    runs_step, bytes_step = bwd_runs(step)
+    live = int(((step[3] != 0) | (step[4] != 0).any(dim=0))[
+        step[1] > 0].sum())
+    log(f"bwd timing scene1 step bounce R={step[0].shape[1]} "
+        f"({int((step[1] > 0).sum())} hits, {live} with a nonzero "
+        f"cotangent): back to back {ms_step:.4f} ms, bound {b_step:.4f} ms "
+        f"by {by_step}; {runs_step} runs, {bytes_step / 1e6:.3f} MB of run "
+        f"traffic; three launches bit-identical and bit-equal to the "
+        f"ordered mirror; max |diff| / sum|terms| from the float64 sums: "
+        f"kernels {r64:.3e}, plain {p64:.3e}; kernels from the plain version "
+        f"{rel:.3e} | {card}")
     return {"err": err, "ms": ms, "ms_back_to_back": ms_b2b,
-            "plain_ms": plain, "bound_ms": b, "bound_by": by}
+            "plain_ms": plain, "bound_ms": b, "bound_by": by,
+            "bit_equal_ordered": True, "deterministic": True}
 
 
 def step_grads_ok(loss, grads, need=()):
@@ -1208,9 +1372,12 @@ def precision_record(kern, rows_hits):
         "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
         "float32_matmul_precision": torch.get_float32_matmul_precision(),
         "max_abs_err": {k: v["err"] for k, v in kern.items()},
-        # the backward's table sums, in atomic order, were held within
-        # BWD_SUM_RTOL of each entry's sum of |terms| in phase 9
+        # phase 9: the backward's tables bit-equal to the plain mirror of
+        # its order on every set, three launches bit-identical, and within
+        # BWD_SUM_RTOL of each entry's sum of |terms| of the plain version
         "bwd_sum_rtol": BWD_SUM_RTOL,
+        "bwd_bit_equal_ordered": kern["bwd"].pop("bit_equal_ordered"),
+        "bwd_deterministic": kern["bwd"].pop("deterministic"),
         "rows_bit_equal_hit_lanes": rows_hits,
     }
     assert rec["matmul_allow_tf32"] is False, rec
@@ -1218,6 +1385,8 @@ def precision_record(kern, rows_hits):
     assert rec["float32_matmul_precision"] == "highest", rec
     assert all(kern[k]["err"] == 0.0 for k in ("none", "cull", "bvh",
                                                "aaq")), rec
+    assert rec["bwd_bit_equal_ordered"] is True, rec
+    assert rec["bwd_deterministic"] is True, rec
     return rec
 
 
@@ -1243,6 +1412,10 @@ def main():
         f" in {build_s:.2f} s -> {_build.library_path('closest_hit')}")
     for line in ptxas_report("closest_hit"):
         log(f"ptxas {line}")
+    atomics = float_atomics("closest_hit")
+    assert len(atomics) == 6 and not any(atomics.values()), atomics
+    log(f"sass: no float atomic in the backward's kernels "
+        f"({', '.join(atomics)})")
     for kernel in ("closest_hit_none_kernel<false",
                    "closest_hit_bvh_kernel<false"):
         for (label, part), counts in sass_mix("closest_hit", kernel).items():

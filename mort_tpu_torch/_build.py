@@ -31,14 +31,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures of each library's exported functions: (restype, argtypes).
 SIGNATURES = {
     "closest_hit": {
         "mort_closest_hit": (_I, (_P, _I, _P, _I, _P, _I, _P, _I, _I, _F,
                                   _I, _P, _I, _I, _P, _P, _P, _I, _I, _P,
                                   _P, _I, _I, _P, _P, _P)),
-        "mort_closest_hit_bwd": (_I, (_P, _I, _P, _P, _P, _P, _P, _P, _I,
-                                      _I, _F, _P, _P, _P, _P, _P)),
+        "mort_closest_hit_bwd": (_I, (_P, _I, _P, _P, _P, _P, _P, _I, _P,
+                                      _I, _I, _I, _I, _F, _P, _P, _P, _P,
+                                      _P, _L, _P, _L, _P)),
         "mort_cuda_error_string": (ctypes.c_char_p, (_I,)),
     },
 }

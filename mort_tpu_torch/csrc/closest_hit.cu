@@ -16,8 +16,8 @@
 //           JAX package's heap cluster_tree had 128-row leaves; notes at
 //           the kernel, below);
 //
-// and the gradient of the closest hit, closest_hit_bwd_kernel (the
-// _closest_hit_vjp bwd; its notes are at the kernel, below).
+// and the gradient of the closest hit, the closest_hit_bwd_* kernels (the
+// _closest_hit_vjp bwd; their notes are at the kernels, below).
 //
 // The TPU version folded every per-(ray, primitive) product into
 // limb-packed bf16 MXU dots, gathered the winner's row with a one-hot
@@ -781,172 +781,595 @@ closest_hit_bvh_kernel(const float* __restrict__ rays, int R,
 //
 // Replaces the JAX package's _closest_hit_vjp bwd (pallas_intersect.py,
 // with _t_winner): there a chunked one-hot MXU gather of the winners'
-// coefficient rows and a transposed one-hot segment sum, because TPU
-// scatters serialise.  Here one thread per ray reads its winner's record
-// (10 or 13 floats through __ldg), recomputes half_b, c_term and the root
-// choice with the forward's own rounded ops (sphere_terms), forms the
-// analytic partials of t, writes d_rays and adds the record and joined-row
-// partials into d_sph / d_quad / d_joined with float atomicAdd.  Miss lanes
-// write d_rays = 0 and add nothing.
+// coefficient rows and a transposed one-hot segment sum per chunk, whose
+// chunks a lax.scan adds in order.  Here six kernels on one stream:
+//
+//   closest_hit_bwd_tile_kernel    one thread per ray reads its winner's
+//       record (10 or 13 floats through __ldg), recomputes half_b, c_term
+//       and the root choice with the forward's own rounded ops
+//       (sphere_terms), forms the analytic partials of t and writes d_rays;
+//       a block is a tile of kThreads consecutive lanes, which sums the
+//       terms of its lanes (9 record partials and k_join joined-row
+//       cotangents) by winner key gj (idx for a sphere, quad_base + idx for
+//       a quad) into runs, one per key the tile holds, sorted by key, and
+//       marks each key's tile in a presence bitmap;
+//   closest_hit_bwd_count_kernel, _offsets_kernel and _place_kernel   a
+//       stable counting sort of the runs by key: each key's tiles before
+//       every 32-tile word of the bitmap, each key's first slot (an
+//       exclusive scan of the counts), and each run's slot, in tile order;
+//   closest_hit_bwd_chunk_kernel  one warp sums each aligned 32-run chunk
+//       of a key's runs;
+//   closest_hit_bwd_key_kernel  one warp a key sums its chunks and writes
+//       the key's rows of d_sph, d_quad and d_joined.
+//
+// The order of the adds.  Every sum is a pairwise tree (adjacent pairs at
+// each level, the last of an odd count carried up): level 1a over the lanes
+// of a warp that share a key, in lane order; level 1b over the warps of the
+// tile that hold the key, in warp order; level 2 over the tiles that hold
+// the key, in tile order (as the trees of its aligned 32-run chunks, which
+// are the whole tree's subtrees, summed by the same tree over the chunks).
+// The tree depends only on R, the lane order and the keys, never on
+// scheduling, so two launches give the same bits, and
+// closest_hit_bwd_ordered in closest_hit.py, the plain mirror of this
+// order, gives them too.  No float atomic: atomicOr sets presence bits,
+// whose result does not depend on the order of the ORs.
 //
 // Every per-lane value is the plain version's (closest_hit_bwd_reference)
 // ops in its order, each an explicitly rounded intrinsic, so d_rays and
-// every term added are bit-equal to it; only the order of the adds differs,
-// and it changes from run to run, so the sums match the plain version
-// within a float tolerance relative to the sum of |terms|, not bit for bit.
+// every term are bit-equal to it; the sums differ from its index_add_ only
+// in their order.
 //
-// What bounds it on an H100: the bytes are few (rays, kind, idx, dt and 28
-// rows of drow in, d_rays out, one record per hit ray: under 300 bytes a
-// ray), so the limit is the atomics: every ray that hits the same primitive
-// adds into the same 36 addresses (9 record and 27 joined columns), which
-// serialise in L2, and in scene 1 a large share of rays hit the ground
-// sphere.  So the lanes of a warp that share a winner first sum their terms
-// (__match_any_sync on the winner's joined row, then a shuffle tree over
-// those peers) and one lane adds the sum: at most 32x fewer atomics on a
-// shared winner, 12x faster on scene 1's train-step rays on an H100 (PERF.md,
-// chip_smoke.py phase 9).  A column whose terms are all zero in a warp is
-// skipped (lanes whose path has ended carry zero cotangents).
+// What bounds it on an H100: bytes (rays, kind, idx, dt and 28 rows of drow
+// in, d_rays out, one record per hit ray: under 300 bytes a ray).  The runs
+// add 4 (k_join + 10) bytes each, written and read back once (L2-resident at
+// the train step's R); coherent rays give a few runs a tile.  An earlier
+// kernel added every warp's sums into the tables with float atomics: on
+// scene 1's rays, which mostly hit the ground sphere, they serialised in L2,
+// 0.103 of its 0.143 ms on an H100 (PERF.md).
 __device__ __forceinline__ float div(float a, float b) { return __fdiv_rn(a, b); }
 
-// The sum of x over the lanes of `peers` (this lane's group: the lanes with
-// its key), complete in the group's lowest lane.  Every lane of the warp
-// calls it together.
-__device__ __forceinline__ float sum_peers(unsigned peers, float x) {
-  const int lane = threadIdx.x & 31;
-  int rank = __popc(peers & ((1u << lane) - 1u));   // peers below this lane
-  unsigned rest = peers & (0xfffffffeu << lane);    // peers above it
-  while (__any_sync(0xffffffffu, rest != 0u)) {
-    const int next = __ffs(rest);
-    const float y = __shfl_sync(0xffffffffu, x, (next - 1) & 31);
-    if (next) x = add(x, y);
-    rest &= __ballot_sync(0xffffffffu, !(rank & 1));
-    rank >>= 1;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarps = kThreads / 32;          // warps of a tile
+constexpr int kRecTerms = 9;                   // record partials of a lane
+constexpr int kMaxCols = kRecTerms + kRowT;    // + at most 27 joined columns
+constexpr int kPitch = kMaxCols + 1;           // shared rows without bank
+                                               // conflicts
+constexpr int kChunk = 32;                     // runs of a level-2 chunk
+constexpr int kLevels = 9;                     // level-2 counter depth over
+                                               // groups of 32 chunks: a key
+                                               // has at most 2^18 runs (R <
+                                               // 2^26), 256 groups
+constexpr int kScanThreads = 1024;             // the offsets kernel's block
+
+// Lane i's d_rays (g) and record partials (part[0..8]; a quad writes its
+// first four, the rest stay 0) for its winner: kind k, row j.
+__device__ __forceinline__ void lane_terms(
+    const float* __restrict__ rays, int R, int i, int k, int j,
+    const float* __restrict__ dt, const float* __restrict__ drow,
+    const float* __restrict__ sph, const float* __restrict__ quad,
+    float t_min, float g[7], float (&part)[kMaxCols]) {
+  const float dte = add(dt[i], drow[(size_t)kRowT * R + i]);
+  const Ray r = load_ray(rays, R, i, t_min);
+  if (k == kSphere) {
+    const RowRec rec{sph + (size_t)j * kSphCols};
+    float half_b, c_term;
+    sphere_terms(r, rec, half_b, c_term);
+    // the forward's root choice, bit for bit (sphere_test)
+    const float disc = sub(mul(half_b, half_b), mul(r.a, c_term));
+    const float sq = __fsqrt_rn(fmaxf(disc, 0.0f));
+    const float root1 = sub(-half_b, sq);
+    const bool far = !(root1 > r.tmin_a);
+    const float root = far ? add(root1, mul(2.0f, sq)) : root1;
+    // t = root / a, root = -half_b + sgn sqrt(disc); _t_winner's guards
+    const float sgn = far ? 1.0f : -1.0f;
+    const bool live = disc > 1e-30f;
+    const float sq_g = __fsqrt_rn(fmaxf(disc, 1e-30f));
+    const float two_sq = mul(2.0f, sq_g);
+    const bool a_ok = r.a > 0.0f;
+    const float a_g = a_ok ? r.a : 1.0f;
+    const float G = div(dte, a_g);
+    const float g_hb =
+        mul(G, sub(live ? div(mul(sgn, half_b), sq_g) : 0.0f, 1.0f));
+    const float g_ct = mul(G, live ? div(mul(-sgn, a_g), two_sq) : 0.0f);
+    const float g_a =
+        a_ok ? sub(mul(G, live ? div(mul(-sgn, c_term), two_sq) : 0.0f),
+                   div(mul(G, root), a_g))
+             : 0.0f;
+    // half_b = o.d - c.d - tm cv.d;  c_term = |o|^2 - 2 c.o - 2 tm cv.o
+    //   + (c.c - r^2) + tm (2c.cv) + tm^2 |cv|^2
+    const float cx = rec(0), cy = rec(1), cz = rec(2);
+    const float vx = rec(3), vy = rec(4), vz = rec(5);
+    const float tm = r.tm;
+    const float two_gct = mul(2.0f, g_ct), two_ga = mul(2.0f, g_a);
+    part[0] = sub(mul(-g_hb, r.dx), mul(two_gct, r.ox));
+    part[1] = sub(mul(-g_hb, r.dy), mul(two_gct, r.oy));
+    part[2] = sub(mul(-g_hb, r.dz), mul(two_gct, r.oz));
+    part[3] = mul(tm, part[0]);
+    part[4] = mul(tm, part[1]);
+    part[5] = mul(tm, part[2]);
+    part[6] = g_ct;
+    part[7] = mul(g_ct, tm);
+    part[8] = mul(mul(g_ct, tm), tm);
+    const float ex = sub(sub(r.ox, cx), mul(tm, vx));
+    const float ey = sub(sub(r.oy, cy), mul(tm, vy));
+    const float ez = sub(sub(r.oz, cz), mul(tm, vz));
+    g[0] = add(mul(g_hb, r.dx), mul(two_gct, ex));
+    g[1] = add(mul(g_hb, r.dy), mul(two_gct, ey));
+    g[2] = add(mul(g_hb, r.dz), mul(two_gct, ez));
+    g[3] = add(mul(g_hb, ex), mul(two_ga, r.dx));
+    g[4] = add(mul(g_hb, ey), mul(two_ga, r.dy));
+    g[5] = add(mul(g_hb, ez), mul(two_ga, r.dz));
+    g[6] = add(mul(-g_hb, dot3(vx, vy, vz, r.dx, r.dy, r.dz)),
+               mul(g_ct, sub(add(rec(7), mul(mul(2.0f, tm), rec(8))),
+                             mul(2.0f, dot3(vx, vy, vz, r.ox, r.oy, r.oz)))));
+  } else {
+    // t = (D - n.o) / (n.d): dD = 1/den, dn = -(o + t d)/den,
+    // do = -n/den, dd = -t n/den
+    const RowRec rec{quad + (size_t)j * kQuadCols};
+    const float nx = rec(0), ny = rec(1), nz = rec(2), D = rec(3);
+    const float den = dot3(nx, ny, nz, r.dx, r.dy, r.dz);
+    const float den_g = fabsf(den) >= 1e-8f ? den : 1.0f;
+    const float t = div(sub(D, dot3(nx, ny, nz, r.ox, r.oy, r.oz)), den_g);
+    const float G = div(dte, den_g);
+    part[0] = mul(-G, add(r.ox, mul(t, r.dx)));
+    part[1] = mul(-G, add(r.oy, mul(t, r.dy)));
+    part[2] = mul(-G, add(r.oz, mul(t, r.dz)));
+    part[3] = G;
+    const float gt = mul(-G, t);
+    g[0] = mul(-G, nx); g[1] = mul(-G, ny); g[2] = mul(-G, nz);
+    g[3] = mul(gt, nx); g[4] = mul(gt, ny); g[5] = mul(gt, nz);
   }
-  return x;
 }
 
-// Adds the sum of v over each group of peers into its lead lane's dst; a
-// column that is zero in every lane of the warp costs one vote.
-__device__ __forceinline__ void warp_add(unsigned peers, bool lead, float v,
-                                         float* dst) {
-  if (!__any_sync(0xffffffffu, v != 0.0f)) return;
-  v = sum_peers(peers, v);
-  if (lead && v != 0.0f) atomicAdd(dst, v);
-}
+// Level 1a's schedule, the same for every column: at step s (while any
+// lane of the warp has a peer left) a lane adds the partial of src[s], its
+// next surviving peer above, where bit s of adds is set; a peer survives
+// step s when its rank among the peers is a multiple of 2^(s+1).  That is
+// the pairwise tree over the ranks, complete in the group's lowest lane.
+struct PeerTree {
+  int src[5];
+  unsigned adds;
+  int steps;
 
-__global__ void __launch_bounds__(kThreads)
-closest_hit_bwd_kernel(const float* __restrict__ rays, int R,
-                       const int* __restrict__ kind,
-                       const int* __restrict__ idx,
-                       const float* __restrict__ dt,
-                       const float* __restrict__ drow,
-                       const float* __restrict__ sph,
-                       const float* __restrict__ quad, int k_join,
-                       int quad_base, float t_min,
-                       float* __restrict__ d_rays, float* __restrict__ d_sph,
-                       float* __restrict__ d_quad,
-                       float* __restrict__ d_joined) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  // out-of-range lanes of the last warp take part in the warp sums as misses
+  __device__ __forceinline__ explicit PeerTree(unsigned peers) {
+    const int lane = threadIdx.x & 31;
+    int rank = __popc(peers & ((1u << lane) - 1u));   // peers below
+    unsigned rest = peers & (0xfffffffeu << lane);    // peers above
+    adds = 0u;
+    steps = 0;
+#pragma unroll
+    for (int s = 0; s < 5; ++s) {
+      src[s] = lane;
+      if (!__any_sync(kFull, rest != 0u)) break;
+      const int next = __ffs(rest);
+      if (next) {
+        src[s] = next - 1;
+        adds |= 1u << s;
+      }
+      rest &= __ballot_sync(kFull, !(rank & 1));
+      rank >>= 1;
+      steps = s + 1;
+    }
+  }
+
+  // The sums of each x[c] over this lane's peers, all columns a step at a
+  // time (their shuffles in flight together); every lane of the warp calls
+  // it.
+  __device__ __forceinline__ void sum(float (&x)[kMaxCols]) const {
+#pragma unroll
+    for (int s = 0; s < 5; ++s) {
+      if (s >= steps) break;
+      const bool take = adds >> s & 1u;
+#pragma unroll
+      for (int c = 0; c < kMaxCols; ++c) {
+        const float y = __shfl_sync(kFull, x[c], src[s]);
+        if (take) x[c] = add(x[c], y);
+      }
+    }
+  }
+};
+
+__global__ void __launch_bounds__(kThreads, 4)
+closest_hit_bwd_tile_kernel(const float* __restrict__ rays, int R,
+                            const int* __restrict__ kind,
+                            const int* __restrict__ idx,
+                            const float* __restrict__ dt,
+                            const float* __restrict__ drow,
+                            const float* __restrict__ sph,
+                            const float* __restrict__ quad, int k_join,
+                            int quad_base, float t_min,
+                            float* __restrict__ d_rays,
+                            int* __restrict__ run_key,
+                            float* __restrict__ run_val,
+                            int* __restrict__ tile_runs,
+                            unsigned* __restrict__ present, int n_words) {
+  __shared__ float s_val[kThreads][kPitch];   // entry rows: warp sums
+  __shared__ int s_key[kThreads];             // entry keys, warp by warp
+  __shared__ int s_order[kThreads];           // entries sorted by key, warp
+  __shared__ int s_start[kThreads + 1];       // first sorted entry of a run
+  __shared__ int s_warp[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int tile = blockIdx.x;
+  const int i = tile * kThreads + threadIdx.x;
+  // out-of-range lanes of the last tile take part as misses
   const int k = i < R ? kind[i] : 0;
   const bool hit = k == kSphere || k == kQuad;
   const int j = hit ? idx[i] : 0;
+  // the lane's terms: its record partials, then the joined-row cotangents
+  // (all loads in flight at once; one column at a time, each load's
+  // latency would stand alone before its tree)
+  float x[kMaxCols];
+#pragma unroll
+  for (int c = 0; c < kRowT; ++c)
+    x[kRecTerms + c] = hit && c < k_join ? drow[(size_t)c * R + i] : 0.0f;
   float g[7] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  float part[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  if (hit) {
-    const float dte = add(dt[i], drow[(size_t)kRowT * R + i]);
-    const Ray r = load_ray(rays, R, i, t_min);
-    if (k == kSphere) {
-      const RowRec rec{sph + (size_t)j * kSphCols};
-      float half_b, c_term;
-      sphere_terms(r, rec, half_b, c_term);
-      // the forward's root choice, bit for bit (sphere_test)
-      const float disc = sub(mul(half_b, half_b), mul(r.a, c_term));
-      const float sq = __fsqrt_rn(fmaxf(disc, 0.0f));
-      const float root1 = sub(-half_b, sq);
-      const bool far = !(root1 > r.tmin_a);
-      const float root = far ? add(root1, mul(2.0f, sq)) : root1;
-      // t = root / a, root = -half_b + sgn sqrt(disc); _t_winner's guards
-      const float sgn = far ? 1.0f : -1.0f;
-      const bool live = disc > 1e-30f;
-      const float sq_g = __fsqrt_rn(fmaxf(disc, 1e-30f));
-      const float two_sq = mul(2.0f, sq_g);
-      const bool a_ok = r.a > 0.0f;
-      const float a_g = a_ok ? r.a : 1.0f;
-      const float G = div(dte, a_g);
-      const float g_hb =
-          mul(G, sub(live ? div(mul(sgn, half_b), sq_g) : 0.0f, 1.0f));
-      const float g_ct = mul(G, live ? div(mul(-sgn, a_g), two_sq) : 0.0f);
-      const float g_a =
-          a_ok ? sub(mul(G, live ? div(mul(-sgn, c_term), two_sq) : 0.0f),
-                     div(mul(G, root), a_g))
-               : 0.0f;
-      // half_b = o.d - c.d - tm cv.d;  c_term = |o|^2 - 2 c.o - 2 tm cv.o
-      //   + (c.c - r^2) + tm (2c.cv) + tm^2 |cv|^2
-      const float cx = rec(0), cy = rec(1), cz = rec(2);
-      const float vx = rec(3), vy = rec(4), vz = rec(5);
-      const float tm = r.tm;
-      const float two_gct = mul(2.0f, g_ct), two_ga = mul(2.0f, g_a);
-      part[0] = sub(mul(-g_hb, r.dx), mul(two_gct, r.ox));
-      part[1] = sub(mul(-g_hb, r.dy), mul(two_gct, r.oy));
-      part[2] = sub(mul(-g_hb, r.dz), mul(two_gct, r.oz));
-      part[3] = mul(tm, part[0]);
-      part[4] = mul(tm, part[1]);
-      part[5] = mul(tm, part[2]);
-      part[6] = g_ct;
-      part[7] = mul(g_ct, tm);
-      part[8] = mul(mul(g_ct, tm), tm);
-      const float ex = sub(sub(r.ox, cx), mul(tm, vx));
-      const float ey = sub(sub(r.oy, cy), mul(tm, vy));
-      const float ez = sub(sub(r.oz, cz), mul(tm, vz));
-      g[0] = add(mul(g_hb, r.dx), mul(two_gct, ex));
-      g[1] = add(mul(g_hb, r.dy), mul(two_gct, ey));
-      g[2] = add(mul(g_hb, r.dz), mul(two_gct, ez));
-      g[3] = add(mul(g_hb, ex), mul(two_ga, r.dx));
-      g[4] = add(mul(g_hb, ey), mul(two_ga, r.dy));
-      g[5] = add(mul(g_hb, ez), mul(two_ga, r.dz));
-      g[6] = add(mul(-g_hb, dot3(vx, vy, vz, r.dx, r.dy, r.dz)),
-                 mul(g_ct, sub(add(rec(7), mul(mul(2.0f, tm), rec(8))),
-                               mul(2.0f, dot3(vx, vy, vz, r.ox, r.oy,
-                                              r.oz)))));
-    } else {
-      // t = (D - n.o) / (n.d): dD = 1/den, dn = -(o + t d)/den,
-      // do = -n/den, dd = -t n/den
-      const RowRec rec{quad + (size_t)j * kQuadCols};
-      const float nx = rec(0), ny = rec(1), nz = rec(2), D = rec(3);
-      const float den = dot3(nx, ny, nz, r.dx, r.dy, r.dz);
-      const float den_g = fabsf(den) >= 1e-8f ? den : 1.0f;
-      const float t = div(sub(D, dot3(nx, ny, nz, r.ox, r.oy, r.oz)), den_g);
-      const float G = div(dte, den_g);
-      part[0] = mul(-G, add(r.ox, mul(t, r.dx)));
-      part[1] = mul(-G, add(r.oy, mul(t, r.dy)));
-      part[2] = mul(-G, add(r.oz, mul(t, r.dz)));
-      part[3] = G;
-      const float gt = mul(-G, t);
-      g[0] = mul(-G, nx); g[1] = mul(-G, ny); g[2] = mul(-G, nz);
-      g[3] = mul(gt, nx); g[4] = mul(gt, ny); g[5] = mul(gt, nz);
-    }
-  }
+#pragma unroll
+  for (int c = 0; c < kRecTerms; ++c) x[c] = 0.0f;
+  if (hit) lane_terms(rays, R, i, k, j, dt, drow, sph, quad, t_min, g, x);
   if (i < R) {
 #pragma unroll
     for (int c = 0; c < 7; ++c) d_rays[(size_t)c * R + i] = g[c];
     d_rays[(size_t)7 * R + i] = 0.0f;
   }
 
-  // the record partials (a quad's past its fourth are 0), then the row's
-  // cotangent (the row is a gather of the joined table, so its transpose is
-  // an add into the winner's row)
-  const int gj = k == kQuad ? quad_base + j : j;
-  float* rec_dst = k == kQuad ? d_quad + (size_t)j * kQuadCols
-                              : d_sph + (size_t)j * kSphCols;
-  float* row_dst = d_joined + (size_t)gj * k_join;
-  const unsigned peers = __match_any_sync(0xffffffffu, hit ? gj : -1);
-  const bool lead = hit && (int)(threadIdx.x & 31) == __ffs(peers) - 1;
+  // level 1a: the lanes of the warp that share a key (a miss, keyed apart,
+  // is alone and adds nothing); each group's lowest lane holds its sums
+  const int key = !hit ? -1 - lane : k == kQuad ? quad_base + j : j;
+  const unsigned peers = __match_any_sync(kFull, key);
+  const bool lead = hit && (peers & below) == 0u;
+  const PeerTree tree(peers);
+  const unsigned leads = __ballot_sync(kFull, lead);
+  if (lane == 0) s_warp[warp] = __popc(leads);
+  __syncthreads();
+  int row = 0, n_ent = 0;
 #pragma unroll
-  for (int c = 0; c < 9; ++c) warp_add(peers, lead, part[c], rec_dst + c);
-  for (int c = 0; c < k_join; ++c)
-    warp_add(peers, lead, hit ? drow[(size_t)c * R + i] : 0.0f, row_dst + c);
+  for (int w = 0; w < kWarps; ++w) {
+    row += w < warp ? s_warp[w] : 0;
+    n_ent += s_warp[w];
+  }
+  row += __popc(leads & below);
+  tree.sum(x);
+  if (lead) {
+    s_key[row] = key;
+#pragma unroll
+    for (int c = 0; c < kMaxCols; ++c) s_val[row][c] = x[c];
+  }
+  __syncthreads();
+  if (n_ent == 0) {
+    if (threadIdx.x == 0) tile_runs[tile] = 0;
+    return;
+  }
+
+  // level 1b: the entries sorted by (key, warp): an entry's slot is the
+  // count of entries before it in that order
+  if (threadIdx.x < n_ent) {
+    const int e = threadIdx.x, ke = s_key[e];
+    int pos = 0;
+    for (int f = 0; f < n_ent; ++f) {
+      const int kf = s_key[f];
+      pos += kf < ke || (kf == ke && f < e);
+    }
+    s_order[pos] = e;
+  }
+  __syncthreads();
+  const int p = threadIdx.x;
+  const bool first = p < n_ent && (p == 0 || s_key[s_order[p - 1]] !=
+                                                 s_key[s_order[p]]);
+  const unsigned firsts = __ballot_sync(kFull, first);
+  if (lane == 0) s_warp[warp] = __popc(firsts);
+  __syncthreads();
+  int run = 0, n_runs = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    run += w < warp ? s_warp[w] : 0;
+    n_runs += s_warp[w];
+  }
+  run += __popc(firsts & below);
+  if (first) s_start[run] = p;
+  if (threadIdx.x == 0) s_start[n_runs] = n_ent;
+  __syncthreads();
+
+  // each run's columns: the pairwise tree over its (at most kWarps)
+  // entries, in warp order
+  const int nc = kRecTerms + k_join;
+  float* out = run_val + (size_t)tile * kThreads * nc;
+  for (int w = threadIdx.x; w < n_runs * nc; w += kThreads) {
+    const int r = w / nc, c = w - r * nc;
+    const int p0 = s_start[r], n = s_start[r + 1] - p0;
+    float v[kWarps];
+#pragma unroll
+    for (int q = 0; q < kWarps; ++q)
+      v[q] = q < n ? s_val[s_order[p0 + q]][c] : 0.0f;
+#pragma unroll
+    for (int s = 1; s < kWarps; s *= 2) {
+#pragma unroll
+      for (int q = 0; q + s < kWarps; q += 2 * s)
+        if (q + s < n) v[q] = add(v[q], v[q + s]);
+    }
+    out[w] = v[0];
+  }
+  if (threadIdx.x < n_runs) {
+    const int kk = s_key[s_order[s_start[threadIdx.x]]];
+    run_key[(size_t)tile * kThreads + threadIdx.x] = kk;
+    atomicOr(present + (size_t)kk * n_words + (tile >> 5),
+             1u << (tile & 31));
+  }
+  if (threadIdx.x == 0) tile_runs[tile] = n_runs;
 }
+
+// For each key (one warp each): prefix[key][w], the tiles below word w of
+// its presence bitmap that hold it, and count[key], all of them.
+__global__ void __launch_bounds__(kThreads)
+closest_hit_bwd_count_kernel(const unsigned* __restrict__ present,
+                             int n_keys, int n_words,
+                             int* __restrict__ prefix,
+                             int* __restrict__ count) {
+  const int key = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (key >= n_keys) return;
+  int carry = 0;
+  for (int w0 = 0; w0 < n_words; w0 += 32) {
+    const int w = w0 + lane;
+    const size_t at = (size_t)key * n_words + w;
+    const int n = w < n_words ? __popc(present[at]) : 0;
+    int incl = n;
+#pragma unroll
+    for (int d = 1; d < 32; d *= 2) {
+      const int y = __shfl_up_sync(kFull, incl, d);
+      if (lane >= d) incl += y;
+    }
+    if (w < n_words) prefix[at] = carry + incl - n;
+    carry += __shfl_sync(kFull, incl, 31);
+  }
+  if (lane == 0) count[key] = carry;
+}
+
+// The exclusive scan of v over a block of kScanThreads threads (each
+// thread's v its share of the keys); s is kScanThreads / 32 ints.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = v;
+#pragma unroll
+  for (int d = 1; d < 32; d *= 2) {
+    const int y = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl += y;
+  }
+  __syncthreads();   // s is free (an earlier scan's readers are done)
+  if (lane == 31) s[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int x = s[lane];
+    int inc = x;
+#pragma unroll
+    for (int d = 1; d < 32; d *= 2) {
+      const int y = __shfl_up_sync(kFull, inc, d);
+      if (lane >= d) inc += y;
+    }
+    s[lane] = inc - x;
+  }
+  __syncthreads();
+  return s[warp] + incl - v;
+}
+
+// offset[key]: the exclusive scan of count, and chunk_off[key] that of its
+// level-2 chunks, ceil(count / kChunk); offset[n_keys] and
+// chunk_off[n_keys], the runs and the chunks in all.  One block: each
+// thread scans a contiguous share of the keys.
+__global__ void __launch_bounds__(kScanThreads)
+closest_hit_bwd_offsets_kernel(const int* __restrict__ count, int n_keys,
+                               int* __restrict__ offset,
+                               int* __restrict__ chunk_off) {
+  __shared__ int s_sum[kScanThreads / 32];
+  const int per = (n_keys + kScanThreads - 1) / kScanThreads;
+  const int k0 = min((int)threadIdx.x * per, n_keys);
+  const int k1 = min(k0 + per, n_keys);
+  int runs = 0, chunks = 0;
+  for (int k = k0; k < k1; ++k) {
+    runs += count[k];
+    chunks += (count[k] + kChunk - 1) / kChunk;
+  }
+  int at = block_exclusive_scan(runs, s_sum);
+  int ch = block_exclusive_scan(chunks, s_sum);
+  for (int k = k0; k < k1; ++k) {
+    offset[k] = at;
+    chunk_off[k] = ch;
+    at += count[k];
+    ch += (count[k] + kChunk - 1) / kChunk;
+  }
+  if (threadIdx.x == kScanThreads - 1) {
+    offset[n_keys] = at;
+    chunk_off[n_keys] = ch;
+  }
+}
+
+// order[slot]: the runs of each key in tile order, from integer counts
+// alone: a run's slot is its key's offset plus its rank, the key's tiles
+// below its tile.  The run of rank 32 g starts the key's chunk g.
+__global__ void __launch_bounds__(kThreads)
+closest_hit_bwd_place_kernel(const int* __restrict__ run_key,
+                             const int* __restrict__ tile_runs,
+                             const unsigned* __restrict__ present,
+                             const int* __restrict__ prefix,
+                             const int* __restrict__ offset,
+                             const int* __restrict__ chunk_off, int n_words,
+                             int* __restrict__ order,
+                             int* __restrict__ chunk_first,
+                             int* __restrict__ chunk_key) {
+  const int tile = blockIdx.x;
+  if ((int)threadIdx.x >= tile_runs[tile]) return;
+  const int run = tile * kThreads + threadIdx.x;
+  const int key = run_key[run];
+  const size_t w = (size_t)key * n_words + (tile >> 5);
+  const int rank =
+      prefix[w] + __popc(present[w] & ((1u << (tile & 31)) - 1u));
+  const int slot = offset[key] + rank;
+  order[slot] = run;
+  if (rank % kChunk == 0) {
+    const int g = chunk_off[key] + rank / kChunk;
+    chunk_first[g] = slot;
+    chunk_key[g] = key;
+  }
+}
+
+// The pairwise tree, over the lanes below n, of each lane's x[c], complete
+// in lane 0 (every column: their shuffles in flight together).
+__device__ __forceinline__ void lane_tree(float (&x)[kMaxCols], int n) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int s = 1; s < 32; s *= 2) {
+    const bool take = (lane & (2 * s - 1)) == 0 && lane + s < n;
+#pragma unroll
+    for (int c = 0; c < kMaxCols; ++c) {
+      const float y = __shfl_down_sync(kFull, x[c], s);
+      if (take) x[c] = add(x[c], y);
+    }
+  }
+}
+
+// Level 2a, one warp a chunk: the pairwise tree over its (at most kChunk)
+// runs in tile order, all columns at once.
+__global__ void __launch_bounds__(kThreads)
+closest_hit_bwd_chunk_kernel(const float* __restrict__ run_val, int k_join,
+                             const int* __restrict__ order,
+                             const int* __restrict__ offset,
+                             const int* __restrict__ chunk_off, int n_keys,
+                             const int* __restrict__ chunk_first,
+                             const int* __restrict__ chunk_key,
+                             float* __restrict__ chunk_val) {
+  const int g = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (g >= chunk_off[n_keys]) return;
+  const int nc = kRecTerms + k_join;
+  const int first = chunk_first[g];
+  const int n = min(kChunk, offset[chunk_key[g] + 1] - first);
+  float x[kMaxCols];
+  const float* src =
+      run_val + (size_t)(lane < n ? order[first + lane] : 0) * nc;
+#pragma unroll
+  for (int c = 0; c < kMaxCols; ++c)
+    x[c] = lane < n && c < nc ? src[c] : 0.0f;
+  lane_tree(x, n);
+  if (lane == 0) {
+#pragma unroll
+    for (int c = 0; c < kMaxCols; ++c)
+      if (c < nc) chunk_val[(size_t)g * nc + c] = x[c];
+  }
+}
+
+// Level 2b, one warp a key: the pairwise tree over its chunks, as the
+// trees of its aligned groups of 32 (the whole tree's subtrees) summed by
+// a binary counter (a pairwise tree too); then the key's rows of the tables
+// (zeros for a key no lane hit).
+__global__ void __launch_bounds__(kThreads)
+closest_hit_bwd_key_kernel(const float* __restrict__ chunk_val, int k_join,
+                           const int* __restrict__ chunk_off, int n_keys,
+                           int quad_base, int n_sph, int n_quad,
+                           float* __restrict__ d_sph,
+                           float* __restrict__ d_quad,
+                           float* __restrict__ d_joined) {
+  __shared__ float s_stack[kWarps][kLevels][kMaxCols];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int key = blockIdx.x * kWarps + warp;
+  if (key >= n_keys) return;
+  const int nc = kRecTerms + k_join;
+  const int g0 = chunk_off[key], n = chunk_off[key + 1] - g0;
+  const int groups = (n + 31) / 32;
+  float x[kMaxCols];
+#pragma unroll
+  for (int c = 0; c < kMaxCols; ++c) x[c] = 0.0f;
+  for (int j = 0; j < groups; ++j) {
+    const int len = min(32, n - 32 * j);
+    const float* src = chunk_val + (size_t)(g0 + 32 * j + lane) * nc;
+#pragma unroll
+    for (int c = 0; c < kMaxCols; ++c)
+      x[c] = lane < len && c < nc ? src[c] : 0.0f;
+    lane_tree(x, len);
+    if (lane == 0 && groups > 1) {
+      // push group j onto the counter: merge while j's low bits are ones
+#pragma unroll
+      for (int c = 0; c < kMaxCols; ++c) {
+        if (c < nc) {
+          float v = x[c];
+          int b = 0;
+          for (unsigned u = (unsigned)j; u & 1u; u >>= 1, ++b)
+            v = add(s_stack[warp][b][c], v);
+          s_stack[warp][b][c] = v;
+        }
+      }
+    }
+  }
+  if (lane != 0) return;
+  if (groups > 1) {
+    // the counter's partial sums, the last (smallest) first
+#pragma unroll
+    for (int c = 0; c < kMaxCols; ++c) {
+      if (c < nc) {
+        bool any = false;
+        for (int b = 0; b < kLevels; ++b) {
+          if (groups >> b & 1) {
+            x[c] = any ? add(s_stack[warp][b][c], x[c]) : s_stack[warp][b][c];
+            any = true;
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kMaxCols; ++c) {
+    if (c >= nc) continue;
+    if (c >= kRecTerms)
+      d_joined[(size_t)key * k_join + c - kRecTerms] = x[c];
+    else if (key < quad_base && key < n_sph)
+      d_sph[(size_t)key * kSphCols + c] = x[c];
+    else if (key >= quad_base && key - quad_base < n_quad && c < 4)
+      d_quad[(size_t)(key - quad_base) * kQuadCols + c] = x[c];
+  }
+  // the columns no lane adds into: a sphere's surface flag, a quad's past
+  // its fourth
+  if (key < quad_base && key < n_sph)
+    d_sph[(size_t)key * kSphCols + kRecTerms] = 0.0f;
+  if (key >= quad_base && key - quad_base < n_quad) {
+    for (int c = 4; c < kQuadCols; ++c)
+      d_quad[(size_t)(key - quad_base) * kQuadCols + c] = 0.0f;
+  }
+}
+
+// The scratch of a backward launch (closest_hit.bwd_scratch_sizes): R lanes
+// in n_tiles tiles, n_join keys, n_words 32-tile words a key, at most
+// max_chunks level-2 chunks (a key's runs / kChunk, rounded up, summed:
+// under 8 n_tiles + n_join).
+struct BwdScratch {
+  int n_tiles, n_words, max_chunks;
+  long long n_int, n_float;
+  int *run_key, *order, *tile_runs, *count, *offset, *chunk_off,
+      *chunk_first, *chunk_key, *prefix;
+  unsigned* present;
+  float *run_val, *chunk_val;
+
+  BwdScratch(int R, int n_join, int k_join, int* si, float* sf) {
+    n_tiles = (R + kThreads - 1) / kThreads;
+    n_words = (n_tiles + 31) / 32;
+    max_chunks = n_tiles * (kThreads / kChunk) + n_join;
+    const long long slots = (long long)n_tiles * kThreads;
+    const long long words = (long long)n_join * n_words;
+    run_key = si;
+    order = run_key + slots;
+    tile_runs = order + slots;
+    count = tile_runs + n_tiles;
+    offset = count + n_join;
+    chunk_off = offset + n_join + 1;
+    chunk_first = chunk_off + n_join + 1;
+    chunk_key = chunk_first + max_chunks;
+    prefix = chunk_key + max_chunks;
+    present = reinterpret_cast<unsigned*>(prefix + words);
+    n_int = 2 * slots + n_tiles + 3LL * n_join + 2 + 2LL * max_chunks +
+            2 * words;
+    run_val = sf;
+    chunk_val = run_val + slots * (kRecTerms + k_join);
+    n_float = (slots + max_chunks) * (kRecTerms + k_join);
+  }
+};
 
 // The operands of a forward launch.
 struct FwdArgs {
@@ -1034,22 +1457,56 @@ int mort_closest_hit(const float* rays, int R, const float* sph, int n_sph,
   return (int)cudaGetLastError();
 }
 
-// Launches the backward kernel on `stream` and returns cudaGetLastError().
+// Launches the backward kernels on `stream` and returns cudaGetLastError()
+// (cudaErrorInvalidValue, launching nothing, when the scratch is short).
 // `kind`/`idx` are the forward's winner (int32 [R]), `dt` [R] and `drow`
-// [32, R] the cotangents; `d_rays` [8, R] is written, and `d_sph` [Ns, 10],
-// `d_quad` [Nq, 13] and `d_joined` [*, k_join] are added into: the caller
-// zeroes them.  Allocates nothing.
+// [32, R] the cotangents, `sph` [n_sph, 10] and `quad` [n_quad, 13] the
+// records (n_sph <= quad_base, quad_base + n_quad <= n_join); writes
+// `d_rays` [8, R] and every entry of `d_sph`, `d_quad` and `d_joined`
+// [n_join, k_join].  `scratch_i` (int32, n_int) and `scratch_f` (float32,
+// n_float) are the caller's, sized by closest_hit.bwd_scratch_sizes; the
+// presence bitmap in scratch_i is zeroed here (cudaMemsetAsync).  Allocates
+// nothing.
 int mort_closest_hit_bwd(const float* rays, int R, const int* kind,
                          const int* idx, const float* dt, const float* drow,
-                         const float* sph, const float* quad, int k_join,
-                         int quad_base, float t_min, float* d_rays,
-                         float* d_sph, float* d_quad, float* d_joined,
-                         void* stream) {
-  if (R <= 0) return (int)cudaGetLastError();
-  const dim3 grid((unsigned)((R + kThreads - 1) / kThreads));
-  closest_hit_bwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      rays, R, kind, idx, dt, drow, sph, quad, k_join, quad_base, t_min,
-      d_rays, d_sph, d_quad, d_joined);
+                         const float* sph, int n_sph, const float* quad,
+                         int n_quad, int n_join, int k_join, int quad_base,
+                         float t_min, float* d_rays, float* d_sph,
+                         float* d_quad, float* d_joined, int* scratch_i,
+                         long long n_int, float* scratch_f,
+                         long long n_float, void* stream) {
+  if (R < 0 || n_join < 1 || k_join < 0 || k_join > kRowT ||
+      n_sph > quad_base || quad_base + n_quad > n_join)
+    return (int)cudaErrorInvalidValue;
+  const BwdScratch b(R, n_join, k_join, scratch_i, scratch_f);
+  if (n_int < b.n_int || n_float < b.n_float)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long words = (long long)n_join * b.n_words;
+  cudaMemsetAsync(b.present, 0, (size_t)words * sizeof(unsigned), s);
+  if (R > 0) {
+    closest_hit_bwd_tile_kernel<<<b.n_tiles, kThreads, 0, s>>>(
+        rays, R, kind, idx, dt, drow, sph, quad, k_join, quad_base, t_min,
+        d_rays, b.run_key, b.run_val, b.tile_runs, b.present, b.n_words);
+  }
+  closest_hit_bwd_count_kernel<<<(n_join + kWarps - 1) / kWarps, kThreads,
+                                 0, s>>>(b.present, n_join, b.n_words,
+                                         b.prefix, b.count);
+  closest_hit_bwd_offsets_kernel<<<1, kScanThreads, 0, s>>>(
+      b.count, n_join, b.offset, b.chunk_off);
+  if (R > 0) {
+    closest_hit_bwd_place_kernel<<<b.n_tiles, kThreads, 0, s>>>(
+        b.run_key, b.tile_runs, b.present, b.prefix, b.offset, b.chunk_off,
+        b.n_words, b.order, b.chunk_first, b.chunk_key);
+    closest_hit_bwd_chunk_kernel<<<(b.max_chunks + kWarps - 1) / kWarps,
+                                   kThreads, 0, s>>>(
+        b.run_val, k_join, b.order, b.offset, b.chunk_off, n_join,
+        b.chunk_first, b.chunk_key, b.chunk_val);
+  }
+  closest_hit_bwd_key_kernel<<<(n_join + kWarps - 1) / kWarps, kThreads, 0,
+                               s>>>(b.chunk_val, k_join, b.chunk_off, n_join,
+                                    quad_base, n_sph, n_quad, d_sph, d_quad,
+                                    d_joined);
   return (int)cudaGetLastError();
 }
 

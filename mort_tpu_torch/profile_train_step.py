@@ -8,7 +8,8 @@ for the wall time, once by hand with the forward (to the loss) and the
 backward (``torch.autograd.grad``) timed apart, and once under
 ``torch.profiler`` (CPU + CUDA).  Prints the two halves, the device's busy
 and idle shares of the unprofiled wall time, device kernels per bounce,
-the forward and backward closest-hit kernels' device time, and the top
+the forward and backward closest-hit kernels' device time (the
+backward's summed over its six ``closest_hit_bwd_*`` kernels), and the top
 kernels, beside the card's name and power limit.  Needs a CUDA card.
 """
 
@@ -76,9 +77,12 @@ def main(argv=None):
     busy_us = sum(_device_us(e) for e in kernels)
     n_launch = sum(e.count for e in kernels)
     fwd_us = sum(_device_us(e) for e in kernels
-                 if "closest_hit_kernel" in e.key)
-    bwd_us = sum(_device_us(e) for e in kernels
-                 if "closest_hit_bwd_kernel" in e.key)
+                 if any(f"closest_hit_{m}_kernel" in e.key
+                        for m in ch.ACCELS))
+    # the backward's six kernels (closest_hit_bwd_tile_kernel, ...)
+    bwd = [e for e in kernels if "closest_hit_bwd_" in e.key]
+    bwd_us = sum(_device_us(e) for e in bwd)
+    n_bwd = max((e.count for e in bwd), default=0)
 
     print(f"train step scene1 {cam.image_width}x{cam.image_height} @ "
           f"{cam.sqrt_spp ** 2}spp depth {cam.bounce_limit}: wall {wall:.4f} "
@@ -88,8 +92,10 @@ def main(argv=None):
           f"of the unprofiled wall (idle share "
           f"{1 - busy_us / 1e6 / wall:.4f}); {n_launch} kernel launches = "
           f"{n_launch / bounces:.1f} per bounce; closest_hit forward "
-          f"{fwd_us / 1e6:.4f} s, backward {bwd_us / 1e6:.4f} s "
-          f"({ch.launch_count['bwd']} backward launches so far)")
+          f"{fwd_us / 1e6:.4f} s, backward {bwd_us / 1e6:.4f} s over its "
+          f"{len(bwd)} kernels ({n_bwd} calls, "
+          f"{bwd_us / 1e3 / max(n_bwd, 1):.4f} ms a call; "
+          f"{ch.launch_count['bwd']} backward launches so far)")
     print("top kernels by device time (s, launches, name):")
     for e in sorted(kernels, key=_device_us, reverse=True)[:20]:
         print(f"  {_device_us(e) / 1e6:9.4f} {e.count:8d}  {e.key[:100]}")

@@ -84,11 +84,18 @@ Gradient (the port of ``_closest_hit_vjp`` and ``_t_winner``): the winner
 it, t is an analytic function of the ray and the winner's record, and the
 row a gather of the joined table.  Where an operand needs a gradient,
 ``closest_hit`` runs through the autograd Function ``_ClosestHit``, whose
-backward launches the CUDA kernel
-``closest_hit_bwd`` on a CUDA tensor (``launch_count["bwd"]``) and takes
+backward launches the CUDA kernels ``closest_hit_bwd_*`` on a CUDA tensor
+(``launch_count["bwd"]``, one a backward) and takes
 ``closest_hit_bwd_reference`` on a CPU tensor.  It does not depend on the
 accel mode: every mode gives the same winner.  The cull boxes and the bvh
-tree are built detached (a traversal decision has no gradient).
+tree are built detached (a traversal decision has no gradient).  The
+kernels sum each table entry's terms in a fixed order, pairwise trees over
+the lanes of a warp, the warps of a ``BWD_TILE``-lane tile and the tiles,
+each in order, with no float atomic: two launches give the same bits, and
+``closest_hit_bwd_ordered``, the plain mirror of that order, gives them
+too.  ``closest_hit_bwd_reference`` sums with ``index_add_`` in its own
+order: the three agree within a float tolerance of each entry's sum of
+|terms|, and their d_rays bit for bit.
 """
 
 from __future__ import annotations
@@ -144,6 +151,15 @@ AAQ_GROUP_COLS = 5   # aaq_groups: start n k i j
 BVH_MIN_PRIMS = 8192
 ACCELS = ("none", "cull", "bvh")
 _MODE = {"none": 0, "cull": 1, "bvh": 2}
+
+# The backward's order of adds (closest_hit_bwd_ordered): pairwise trees
+# over the lanes of a warp, over the warps of a tile of BWD_TILE lanes (the
+# kernel's block), then over the tiles; BWD_LEVELS, the units a group
+# gathers at each level (None: all)
+WARP = 32
+BWD_TILE = 256
+BWD_LEVELS = (WARP, BWD_TILE // WARP, None)
+REC_TERMS = 9    # record partials a hit lane adds (a quad's past 4 are 0)
 
 # Kernel launches per forward mode and of the backward ("bwd") since import
 # (or since a caller reset them).
@@ -659,6 +675,81 @@ def _launch(packed: PackedScene, rays: torch.Tensor, t_min: float,
     return out
 
 
+def _bwd_lane_terms(rays, kind, idx, dt, drow, sph, quad, t_min):
+    """The per-lane half of the backward (the kernel's ``lane_terms``):
+    d_rays [8, R], and the record partials of the sphere hit lanes (lanes
+    [n_s], rows [n_s], terms [n_s, REC_TERMS]) and of the quad hit lanes
+    (lanes [n_q], rows [n_q], terms [n_q, 4]), each lane's the kernel's
+    rounded ops in its order."""
+    hit = kind != K_NONE
+    dte = torch.where(hit, dt + drow[ROW_T], 0.0)
+    d_rays = torch.zeros_like(rays)
+
+    s = (kind == K_SPHERE).nonzero().squeeze(1)
+    js = idx[s].long()
+    cx, cy, cz, vx, vy, vz, ctc_r2, ccv2, vv, _ = sph[js].unbind(1)
+    ox, oy, oz, dx, dy, dz, tm = (rays[k][s] for k in range(7))
+    # the forward's ops, in its order (closest_hit_reference)
+    a = _dot3(dx, dy, dz, dx, dy, dz)
+    ro_rd = _dot3(ox, oy, oz, dx, dy, dz)
+    ro_sq = _dot3(ox, oy, oz, ox, oy, oz)
+    half_b = ((ro_rd - _dot3(dx, dy, dz, cx, cy, cz))
+              - _dot3(tm * dx, tm * dy, tm * dz, vx, vy, vz))
+    c_term = (((((ro_sq - 2.0 * _dot3(ox, oy, oz, cx, cy, cz))
+                 - 2.0 * _dot3(tm * ox, tm * oy, tm * oz, vx, vy, vz))
+                + ctc_r2) + tm * ccv2) + (tm * tm) * vv)
+    disc = half_b * half_b - a * c_term
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    root1 = -half_b - sq
+    far = ~(root1 > a * t_min)
+    root = torch.where(far, root1 + 2.0 * sq, root1)
+    # d root / d(half_b, c_term, a), then t = root / a
+    sgn = torch.where(far, 1.0, -1.0)
+    live = disc > 1e-30
+    sq_g = torch.sqrt(torch.clamp(disc, min=1e-30))
+    a_ok = a > 0.0
+    a_g = torch.where(a_ok, a, 1.0)
+    G = dte[s] / a_g
+    g_hb = G * (torch.where(live, sgn * half_b / sq_g, 0.0) - 1.0)
+    g_ct = G * torch.where(live, -sgn * a_g / (2.0 * sq_g), 0.0)
+    g_a = torch.where(
+        a_ok, G * torch.where(live, -sgn * c_term / (2.0 * sq_g), 0.0)
+        - G * root / a_g, 0.0)
+    # half_b = o.d - c.d - tm cv.d
+    # c_term = |o|^2 - 2 c.o - 2 tm cv.o + (c.c-r^2) + tm 2c.cv
+    #          + tm^2 |cv|^2
+    dcx = -g_hb * dx - 2.0 * g_ct * ox
+    dcy = -g_hb * dy - 2.0 * g_ct * oy
+    dcz = -g_hb * dz - 2.0 * g_ct * oz
+    ts = torch.stack([dcx, dcy, dcz, tm * dcx, tm * dcy, tm * dcz,
+                      g_ct, g_ct * tm, g_ct * tm * tm], dim=1)
+    ex, ey, ez = ox - cx - tm * vx, oy - cy - tm * vy, oz - cz - tm * vz
+    d_rays[:7, s] = torch.stack([
+        g_hb * dx + 2.0 * g_ct * ex,
+        g_hb * dy + 2.0 * g_ct * ey,
+        g_hb * dz + 2.0 * g_ct * ez,
+        g_hb * ex + 2.0 * g_a * dx,
+        g_hb * ey + 2.0 * g_a * dy,
+        g_hb * ez + 2.0 * g_a * dz,
+        -g_hb * _dot3(vx, vy, vz, dx, dy, dz)
+        + g_ct * (ccv2 + 2.0 * tm * vv
+                  - 2.0 * _dot3(vx, vy, vz, ox, oy, oz))])
+
+    q = (kind == K_QUAD).nonzero().squeeze(1)
+    jq = idx[q].long()
+    nx, ny, nz, D = quad[jq, :4].unbind(1)
+    ox, oy, oz, dx, dy, dz = (rays[k][q] for k in range(6))
+    den = _dot3(nx, ny, nz, dx, dy, dz)
+    den_g = torch.where(torch.abs(den) >= 1e-8, den, 1.0)
+    t = (D - _dot3(nx, ny, nz, ox, oy, oz)) / den_g
+    G = dte[q] / den_g
+    tq = torch.stack([-G * (ox + t * dx), -G * (oy + t * dy),
+                      -G * (oz + t * dz), G], dim=1)
+    d_rays[:6, q] = torch.stack([-G * nx, -G * ny, -G * nz,
+                                 -G * t * nx, -G * t * ny, -G * t * nz])
+    return d_rays, (s, js, ts), (q, jq, tq)
+
+
 def closest_hit_bwd_reference(rays, kind, idx, dt, drow, sph, quad,
                               joined_shape, quad_base, t_min=T_MIN,
                               absolute=False):
@@ -688,96 +779,123 @@ def closest_hit_bwd_reference(rays, kind, idx, dt, drow, sph, quad,
 
     ``absolute=True`` sums |term| instead of each term into d_sph, d_quad and
     d_joined: the scale against which a sum taken in another order (the
-    kernel's atomics) is held."""
+    kernel's) is held."""
     mag = torch.abs if absolute else (lambda x: x)
     dev = rays.device
-    hit = kind != K_NONE
-    dte = torch.where(hit, dt + drow[ROW_T], 0.0)
-    d_rays = torch.zeros_like(rays)
+    d_rays, (s, js, ts), (q, jq, tq) = _bwd_lane_terms(
+        rays, kind, idx, dt, drow, sph, quad, t_min)
     d_sph = torch.zeros_like(sph)
     d_quad = torch.zeros_like(quad)
     d_joined = torch.zeros(joined_shape, dtype=torch.float32, device=dev)
     k_join = joined_shape[1]
-    lanes = hit.nonzero().squeeze(1)
+    lanes = (kind != K_NONE).nonzero().squeeze(1)
     g = torch.where(kind == K_QUAD, idx + quad_base, idx).long()
     d_joined.index_add_(0, g[lanes], mag(drow[:k_join, lanes].T))
-
-    s = (kind == K_SPHERE).nonzero().squeeze(1)
     if s.numel():
-        j = idx[s].long()
-        cx, cy, cz, vx, vy, vz, ctc_r2, ccv2, vv, _ = sph[j].unbind(1)
-        ox, oy, oz, dx, dy, dz, tm = (rays[k][s] for k in range(7))
-        # the forward's ops, in its order (closest_hit_reference)
-        a = _dot3(dx, dy, dz, dx, dy, dz)
-        ro_rd = _dot3(ox, oy, oz, dx, dy, dz)
-        ro_sq = _dot3(ox, oy, oz, ox, oy, oz)
-        half_b = ((ro_rd - _dot3(dx, dy, dz, cx, cy, cz))
-                  - _dot3(tm * dx, tm * dy, tm * dz, vx, vy, vz))
-        c_term = (((((ro_sq - 2.0 * _dot3(ox, oy, oz, cx, cy, cz))
-                     - 2.0 * _dot3(tm * ox, tm * oy, tm * oz, vx, vy, vz))
-                    + ctc_r2) + tm * ccv2) + (tm * tm) * vv)
-        disc = half_b * half_b - a * c_term
-        sq = torch.sqrt(torch.clamp(disc, min=0.0))
-        root1 = -half_b - sq
-        far = ~(root1 > a * t_min)
-        root = torch.where(far, root1 + 2.0 * sq, root1)
-        # d root / d(half_b, c_term, a), then t = root / a
-        sgn = torch.where(far, 1.0, -1.0)
-        live = disc > 1e-30
-        sq_g = torch.sqrt(torch.clamp(disc, min=1e-30))
-        a_ok = a > 0.0
-        a_g = torch.where(a_ok, a, 1.0)
-        G = dte[s] / a_g
-        g_hb = G * (torch.where(live, sgn * half_b / sq_g, 0.0) - 1.0)
-        g_ct = G * torch.where(live, -sgn * a_g / (2.0 * sq_g), 0.0)
-        g_a = torch.where(
-            a_ok, G * torch.where(live, -sgn * c_term / (2.0 * sq_g), 0.0)
-            - G * root / a_g, 0.0)
-        # half_b = o.d - c.d - tm cv.d
-        # c_term = |o|^2 - 2 c.o - 2 tm cv.o + (c.c-r^2) + tm 2c.cv
-        #          + tm^2 |cv|^2
-        dcx = -g_hb * dx - 2.0 * g_ct * ox
-        dcy = -g_hb * dy - 2.0 * g_ct * oy
-        dcz = -g_hb * dz - 2.0 * g_ct * oz
-        zero = torch.zeros_like(G)
-        d_sph.index_add_(0, j, mag(torch.stack([
-            dcx, dcy, dcz, tm * dcx, tm * dcy, tm * dcz,
-            g_ct, g_ct * tm, g_ct * tm * tm, zero], dim=1)))
-        ex, ey, ez = ox - cx - tm * vx, oy - cy - tm * vy, oz - cz - tm * vz
-        d_rays[:7, s] = torch.stack([
-            g_hb * dx + 2.0 * g_ct * ex,
-            g_hb * dy + 2.0 * g_ct * ey,
-            g_hb * dz + 2.0 * g_ct * ez,
-            g_hb * ex + 2.0 * g_a * dx,
-            g_hb * ey + 2.0 * g_a * dy,
-            g_hb * ez + 2.0 * g_a * dz,
-            -g_hb * _dot3(vx, vy, vz, dx, dy, dz)
-            + g_ct * (ccv2 + 2.0 * tm * vv
-                      - 2.0 * _dot3(vx, vy, vz, ox, oy, oz))])
-
-    q = (kind == K_QUAD).nonzero().squeeze(1)
+        d_sph.index_add_(0, js, mag(torch.cat(
+            [ts, ts.new_zeros((ts.shape[0], SPH_COLS - REC_TERMS))], 1)))
     if q.numel():
-        j = idx[q].long()
-        nx, ny, nz, D = quad[j, :4].unbind(1)
-        ox, oy, oz, dx, dy, dz = (rays[k][q] for k in range(6))
-        den = _dot3(nx, ny, nz, dx, dy, dz)
-        den_g = torch.where(torch.abs(den) >= 1e-8, den, 1.0)
-        t = (D - _dot3(nx, ny, nz, ox, oy, oz)) / den_g
-        G = dte[q] / den_g
-        zero = torch.zeros_like(G)
-        d_quad.index_add_(0, j, mag(torch.stack(
-            [-G * (ox + t * dx), -G * (oy + t * dy), -G * (oz + t * dz), G]
-            + [zero] * (QUAD_COLS - 4), dim=1)))
-        d_rays[:6, q] = torch.stack([-G * nx, -G * ny, -G * nz,
-                                     -G * t * nx, -G * t * ny, -G * t * nz])
+        d_quad.index_add_(0, jq, mag(torch.cat(
+            [tq, tq.new_zeros((tq.shape[0], QUAD_COLS - 4))], 1)))
     return d_rays, d_sph, d_quad, d_joined
+
+
+def pairwise_segments(seg, vals):
+    """The pairwise-tree sum of the rows of ``vals`` [n, C] over each run of
+    equal ``seg`` [n] (a run's rows contiguous, in their order): at each
+    level adjacent pairs add, left + right, and the last row of an odd
+    count is carried up unchanged.  Returns (seg of each run [m], its sums
+    [m, C]), the runs in their order; float32 adds, one rounding each."""
+    n = seg.shape[0]
+    if n == 0:
+        return seg, vals
+    dev = seg.device
+    start = torch.ones(n, dtype=torch.bool, device=dev)
+    start[1:] = seg[1:] != seg[:-1]
+    first = start.nonzero().squeeze(1)
+    run = torch.cumsum(start.long(), 0) - 1
+    rank = torch.arange(n, device=dev) - first[run]
+    length = torch.diff(first, append=first.new_tensor([n]))[run]
+    vals = vals.clone()
+    step = 1
+    while step < int(length.max()):
+        at = (((rank % (2 * step)) == 0) & (rank + step < length)
+              ).nonzero().squeeze(1)
+        vals[at] = vals[at] + vals[at + step]
+        step *= 2
+    return seg[first], vals[first]
+
+
+def ordered_sums(lanes, key, vals, n_keys):
+    """The backward kernels' order of adds: ``vals`` [n, C] of the hit
+    ``lanes`` [n] (ascending) summed per ``key`` [n] < ``n_keys`` by a
+    pairwise tree over the lanes of a warp that share the key, in lane
+    order, then over the warps of a tile that hold it, in warp order, then
+    over the tiles, in tile order (``BWD_LEVELS``).  Returns (keys [m]
+    ascending, sums [m, C])."""
+    unit = lanes.long()
+    key = key.long()
+    for per in BWD_LEVELS:
+        group = unit // per if per else torch.zeros_like(unit)
+        comp = group * n_keys + key
+        order = torch.sort(comp, stable=True).indices
+        comp, vals = pairwise_segments(comp[order], vals[order])
+        unit, key = comp // n_keys, comp % n_keys
+    return key, vals
+
+
+def closest_hit_bwd_ordered(rays, kind, idx, dt, drow, sph, quad,
+                            joined_shape, quad_base, t_min=T_MIN):
+    """The plain mirror of the backward kernel's order: the per-lane terms
+    of ``closest_hit_bwd_reference`` (the same arguments and outputs),
+    summed into d_sph, d_quad and d_joined in the kernel's tree
+    (``ordered_sums``), so that on the card the kernel's tables equal its
+    bit for bit.  For the tests and chip_smoke.py; the CPU route of the
+    backward is ``closest_hit_bwd_reference``."""
+    d_rays, (s, js, ts), (q, jq, tq) = _bwd_lane_terms(
+        rays, kind, idx, dt, drow, sph, quad, t_min)
+    R = rays.shape[1]
+    n_join, k_join = joined_shape
+    terms = rays.new_zeros((R, REC_TERMS))
+    terms[s] = ts
+    terms[q, :4] = tq
+    lanes = ((kind == K_SPHERE) | (kind == K_QUAD)).nonzero().squeeze(1)
+    key = torch.where(kind == K_QUAD, idx + quad_base, idx)[lanes]
+    vals = torch.cat([terms[lanes], drow[:k_join, lanes].T], dim=1)
+    key, sums = ordered_sums(lanes, key, vals, n_join)
+    d_sph = torch.zeros_like(sph)
+    d_quad = torch.zeros_like(quad)
+    d_joined = rays.new_zeros(joined_shape)
+    d_joined[key] = sums[:, REC_TERMS:]
+    on_s = key < quad_base
+    d_sph[key[on_s], :REC_TERMS] = sums[on_s, :REC_TERMS]
+    d_quad[key[~on_s] - quad_base, :4] = sums[~on_s, :4]
+    return d_rays, d_sph, d_quad, d_joined
+
+
+def bwd_scratch_sizes(R, n_join, k_join):
+    """(int32 count, float32 count) of the backward kernels' scratch (the
+    .cu's BwdScratch): a run key and a slot of the key order per tile slot,
+    a run count per tile, a count, an offset and a chunk offset per key (the
+    offsets one more), a first slot and a key per level-2 chunk of 32 runs
+    (at most 8 a tile plus one a key), a prefix and a presence word per key
+    and 32-tile word; the REC_TERMS + k_join sums of each tile slot and
+    each chunk."""
+    n_tiles = -(-R // BWD_TILE)
+    words = n_join * -(-n_tiles // 32)
+    slots = n_tiles * BWD_TILE
+    chunks = n_tiles * (BWD_TILE // WARP) + n_join
+    return (2 * slots + n_tiles + 3 * n_join + 2 + 2 * chunks + 2 * words,
+            (slots + chunks) * (REC_TERMS + k_join))
 
 
 def _launch_bwd(rays, kind, idx, dt, drow, sph, quad, joined_shape,
                 quad_base, t_min):
-    """Launch the backward kernel (its plain version is
-    ``closest_hit_bwd_reference``); the gradient buffers are allocated
-    zeroed here and the kernel adds into them with atomics."""
+    """Launch the backward kernels (plain version
+    ``closest_hit_bwd_reference``, plain mirror of their order
+    ``closest_hit_bwd_ordered``); the outputs and the scratch
+    (``bwd_scratch_sizes``) are allocated here, and the kernels write every
+    entry of the outputs."""
     from .._build import load_library
 
     dev = rays.device
@@ -798,20 +916,28 @@ def _launch_bwd(rays, kind, idx, dt, drow, sph, quad, joined_shape,
     _check("sph", sph, torch.float32, dev, 2, SPH_COLS)
     _check("quad", quad, torch.float32, dev, 2, QUAD_COLS)
     n_join, k_join = joined_shape
-    if k_join > ROW_T or quad_base + quad.shape[0] > n_join:
+    # a sphere's key is its row, a quad's quad_base + its row: the two
+    # ranges must not meet
+    if (k_join > ROW_T or n_join < 1 or sph.shape[0] > quad_base
+            or quad_base + quad.shape[0] > n_join):
         raise ValueError("closest_hit_bwd: inconsistent table shapes")
     d_rays = torch.empty_like(rays)
-    d_sph = torch.zeros_like(sph)
-    d_quad = torch.zeros_like(quad)
-    d_joined = torch.zeros(joined_shape, dtype=torch.float32, device=dev)
+    d_sph = torch.empty_like(sph)
+    d_quad = torch.empty_like(quad)
+    d_joined = torch.empty(joined_shape, dtype=torch.float32, device=dev)
+    n_int, n_float = bwd_scratch_sizes(R, n_join, k_join)
+    scratch_i = torch.empty(n_int, dtype=torch.int32, device=dev)
+    scratch_f = torch.empty(n_float, dtype=torch.float32, device=dev)
     lib = load_library("closest_hit")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mort_closest_hit_bwd(
             rays.data_ptr(), R, kind.data_ptr(), idx.data_ptr(),
-            dt.data_ptr(), drow.data_ptr(), sph.data_ptr(), quad.data_ptr(),
-            k_join, quad_base, ctypes.c_float(t_min), d_rays.data_ptr(),
-            d_sph.data_ptr(), d_quad.data_ptr(), d_joined.data_ptr(), stream)
+            dt.data_ptr(), drow.data_ptr(), sph.data_ptr(), sph.shape[0],
+            quad.data_ptr(), quad.shape[0], n_join, k_join, quad_base,
+            ctypes.c_float(t_min), d_rays.data_ptr(), d_sph.data_ptr(),
+            d_quad.data_ptr(), d_joined.data_ptr(), scratch_i.data_ptr(),
+            n_int, scratch_f.data_ptr(), n_float, stream)
     if rc != 0:
         raise RuntimeError(
             f"closest_hit_bwd kernel launch failed: CUDA error {rc} "

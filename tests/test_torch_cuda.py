@@ -343,9 +343,10 @@ def _bwd_args(packed, n, dev, seed=5):
 
 
 def test_backward_kernel_equals_plain(dev):
-    """d_rays bit-equal (every lane's value is the plain version's rounded
-    ops in its order); the table gradients are sums in atomic order, which
-    changes from run to run: within 1e-4 of each entry's sum of |terms|."""
+    """d_rays bit-equal to the plain version (every lane's value is its
+    rounded ops in its order); the table gradients bit-equal to the plain
+    mirror of the kernels' order of adds, and within 1e-4 of each entry's
+    sum of |terms| of the plain version's index_add_ order."""
     args = _bwd_args(_packed(_mixed_world(), dev), 4096, dev)
     before = ch.launch_count["bwd"]
     got = ch._launch_bwd(*args)
@@ -353,9 +354,48 @@ def test_backward_kernel_equals_plain(dev):
     assert ch.launch_count["bwd"] == before + 1
     want = ch.closest_hit_bwd_reference(*args)
     scale = ch.closest_hit_bwd_reference(*args, absolute=True)
+    ordered = ch.closest_hit_bwd_ordered(*args)
     assert torch.equal(got[0], want[0])
     assert bool((got[1] != 0).any()) and bool((got[3] != 0).any())
+    for g, o in zip(got, ordered):
+        assert torch.equal(g, o)
     for g, w, s in zip(got[1:], want[1:], scale[1:]):
+        assert bool(((g - w).abs() <= 1e-4 * s).all())
+
+
+@pytest.mark.parametrize("shape", ["spheres", "quads", "mixed"])
+@pytest.mark.parametrize("R", [1, 31, 255, 4096, 2 ** 16 + 3,
+                               5 * 2 ** 16 + 3])
+def test_backward_deterministic_and_ordered(dev, R, shape):
+    """Three launches give the same bits, the plain mirror's of their order
+    (``closest_hit_bwd_ordered``), at lane counts off the tile and the warp,
+    on spheres only, quads only and both; above 4096 lanes four in five
+    are given the first sphere or quad as their winner: 257 and 1,281
+    tiles' runs on one key (9 and 41 level-2 chunks: one group of 32 and
+    two)."""
+    n_sph, n_quad = {"spheres": (40, 0), "quads": (0, 20),
+                     "mixed": (40, 20)}[shape]
+    packed = _packed(_mixed_world(n_sph, n_quad, moving=True), dev)
+    args = _bwd_args(packed, R, dev, seed=R)
+    if R > 4096:
+        # most lanes on the first surface row: a dominant key, as scene
+        # 1's ground sphere
+        kind, idx = args[1].clone(), args[2].clone()
+        lead = torch.arange(R, device=dev) % 5 != 0
+        kind[lead] = ch.K_SPHERE if n_sph else ch.K_QUAD
+        idx[lead] = 0
+        args = (args[0], kind, idx) + args[3:]
+    before = ch.launch_count["bwd"]
+    runs = [ch._launch_bwd(*args) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert ch.launch_count["bwd"] == before + 3
+    ordered = ch.closest_hit_bwd_ordered(*args)
+    for got in runs:
+        for g, o in zip(got, ordered):
+            assert torch.equal(g, o)
+    want = ch.closest_hit_bwd_reference(*args)
+    scale = ch.closest_hit_bwd_reference(*args, absolute=True)
+    for g, w, s in zip(runs[0][1:], want[1:], scale[1:]):
         assert bool(((g - w).abs() <= 1e-4 * s).all())
 
 
