@@ -9,8 +9,8 @@ Phases, one line each or more (any failure raises and exits non-zero):
 2. build: nvcc-compiles csrc/closest_hit.cu (or loads it from the build
    cache) and reports the seconds, each kernel's registers, spills and
    shared memory (``-Xptxas -v``), the static SASS instruction mix of
-   the "none" and "bvh" kernels (``cuobjdump -sass``), and no float atomic
-   in the backward's six kernels;
+   the "none", "bvh" and "cull" test kernels (``cuobjdump -sass``), and no
+   float atomic in the backward's six kernels or in the "cull" kernels;
 3. philox: the pinned Philox vector of tests/test_rng.py, on the card;
 4. parity: the CUDA closest-hit kernel in each accel mode ("none", "bvh",
    "cull") against its plain PyTorch version on the same card tensors, on
@@ -25,9 +25,11 @@ Phases, one line each or more (any failure raises and exits non-zero):
    (2^18), and 2^16 rays grazing the sphere silhouettes of scene 1 (its
    r = 1000 ground among them) and of the spread scene — t, kind, idx and
    rows bit-equal, also from a launch that counts its sphere, quad, box or
-   node slab and axis-aligned quad tests (printed a ray); then every mode
-   and the plain version timed with CUDA events on each set, one call
-   between two events and ten calls back to back, the share of "none"'s
+   node slab and axis-aligned quad tests and "cull"'s pairs (ray, entered
+   sub-cluster) (printed a ray); then every mode and the plain version
+   timed with CUDA events on each set, one call between two events and ten
+   calls back to back (the four-way line: none / cull / bvh back to back
+   on scenes 1, 7, 9 and spread16k), the share of "none"'s
    time that scene 7's quads and its axis-aligned quads take, and the rows
    emitted on hit lanes against the joined table's;
 5. main path, scene 1: ``render_wavefront`` at its bench config (1200x675,
@@ -76,7 +78,14 @@ Phases, one line each or more (any failure raises and exits non-zero):
    uninterrupted, then interrupted after two layers and resumed from its
    checkpoint: bit-equal;
 15. the viewer: ``view`` on scene 6 at 64x64 with movement, a drag and
-   saved frames.
+   saved frames;
+16. main path, forced "cull": ``render_wavefront(..., accel="cull")`` on
+   scene 9 at 400x400, depth 4, spp cut from 225 to 16 (the run's time),
+   launch counts reset just before and read just after; beside it the same
+   config through the auto accel ("none"), in the order none, cull, cull,
+   none, the four images bit-equal; half the frame's tasks (every pixel
+   once) rendered once more under ``torch.profiler`` for the "cull"
+   kernels' share of device time.
 
 Files go to build/chip_smoke/ (git-ignored).  The last lines are a JSON
 record of the numerics (``{"precision": ...}``: TF32 off, each kernel's
@@ -190,8 +199,8 @@ def assert_images_close(got, want, frac_ok=0.98, atol=2e-2, mean_tol=4e-3):
 
 def kernel_label(mangled):
     """closest_hit_none_kernel<false, 2> from its mangled name."""
-    m = re.search(r"closest_hit_(?:none_|cull_|bvh_|bwd_[a-z]+_)?kernel",
-                  mangled)
+    m = re.search(
+        r"closest_hit_(?:none_|cull_[a-z]+_|bvh_|bwd_[a-z]+_)?kernel", mangled)
     if m is None:
         return mangled
     rest = mangled[m.end():]
@@ -412,17 +421,19 @@ def surface_counts(packed):
 
 def count_tests(name, packed, rays, want):
     """The (sphere, quad, box or node slab, axis-aligned quad) tests one
-    launch of ``packed.accel`` performs, from the kernel's optional counter;
-    the counted launch must still equal the plain version bit for bit.  In
-    "none" every ray tests every surface sphere and every box, every live
-    axis-aligned quad by the specialised test (a finite ray) and at most
-    every other surface quad (every one when the scene has no closed box);
-    the other modes take no specialised test."""
+    launch of ``packed.accel`` performs and "cull"'s pairs (ray, entered
+    sub-cluster), from the kernel's optional counter; the counted launch
+    must still equal the plain version bit for bit.  In "none" every ray
+    tests every surface sphere and every box, every live axis-aligned quad
+    by the specialised test (a finite ray) and at most every other surface
+    quad (every one when the scene has no closed box); in "cull" every ray
+    slab-tests every box and a pair is at most CL tests; the other modes
+    take no specialised test and have no pairs."""
     n = torch.zeros(ch.N_TESTS, dtype=torch.int64, device=rays.device)
     got = ch._launch(packed, rays, T_MIN, n)
     torch.cuda.synchronize()
     assert torch.equal(got, want), f"{name}: the counted launch differs"
-    n_s, n_q, n_b, n_a = (int(x) for x in n)
+    n_s, n_q, n_b, n_a, n_p = (int(x) for x in n)
     if packed.accel == "none":
         R = rays.shape[1]
         surf_s, surf_q = surface_counts(packed)
@@ -436,7 +447,14 @@ def count_tests(name, packed, rays, want):
             f"{name}: counted {(n_s, n_q, n_b, n_a)} tests"
     else:
         assert n_a == 0, f"{name}: {n_a} axis-aligned tests"
-    return n_s, n_q, n_b, n_a
+    if packed.accel == "cull":
+        R = rays.shape[1]
+        assert n_b == R * packed.n_accel and n_p <= R * packed.n_accel \
+            and n_s + n_q <= n_p * ch.CL, \
+            f"{name}: counted {(n_s, n_q, n_b, n_p)} tests and pairs"
+    else:
+        assert n_p == 0, f"{name}: {n_p} pairs"
+    return n_s, n_q, n_b, n_a, n_p
 
 
 def bound_parts(packed, R, n_tests):
@@ -450,8 +468,8 @@ def bound_parts(packed, R, n_tests):
         if t is not None:
             tabs.append(t)
     n_bytes = R * (8 + ch.ROW_K) * 4 + sum(t.numel() * 4 for t in tabs)
-    n_s, n_q, n_b, n_a = n_tests
-    slab = NODE_SLAB_OPS if packed.accel == "bvh" else SLAB_OPS
+    n_s, n_q, n_b, n_a = n_tests[:4]
+    slab = SLAB_OPS if packed.accel == "none" else NODE_SLAB_OPS
     return (n_bytes / HBM_BYTES_PER_S * 1e3,
             (n_s * SPHERE_OPS + n_q * QUAD_OPS + n_b * slab
              + n_a * AAQ_OPS) / FP32_OPS_PER_S * 1e3)
@@ -462,7 +480,56 @@ def brute_force_tests(packed, R):
     before its box cull), whose bound is printed beside the bound of the
     tests counted."""
     surf_s, surf_q = surface_counts(packed)
-    return R * surf_s, R * surf_q, 0, 0
+    return R * surf_s, R * surf_q, 0, 0, 0
+
+
+def running_bound_tests(packed, rays):
+    """The (sphere, quad, box slab, axis-aligned quad, pairs) tests of
+    "cull" with a running bound, the least work the mode needs, which the
+    kernels line's bound counts: a ray walks the sub-clusters in order
+    (spheres first) and tests the rows of each whose widened box it enters
+    before its best t so far (the sphere best, then the smaller of it and
+    the quad best), and slab-tests every box.  The kernels test with the
+    bound +inf and count more (``count_tests``), beside it.  A
+    sub-cluster's best is ``closest_hit_reference`` over its rows alone; a
+    box the bound skips holds no hit before the bound (the boxes are
+    widened), so the best so far is the running minimum of the entered
+    ones.  The slab planes round twice here where the kernel's fma rounds
+    once."""
+    R = rays.shape[1]
+    box, n_ss = packed.accel_tab, packed.n_sph_sub
+    o, d = rays[0:3].T, rays[3:6].T
+    ir = 1.0 / torch.where(d.abs() < 1e-30,
+                           torch.where(d >= 0.0, 1e-30, -1e-30), d)
+    m = o.abs().amax(dim=1, keepdim=True)
+    m = m * ch.AAB_SLACK + ch.sphere_pad(m, box[0, 6])
+    o_lo, o_hi = (o + m) * ir, (o - m) * ir
+    bound = torch.full((R,), float("inf"), device=rays.device)
+    tests = [0, 0]
+    for k in range(packed.n_accel):
+        sphere = k < n_ss
+        q = k if sphere else k - n_ss
+        tab, n_rows = ((packed.sph, packed.n_sph) if sphere
+                       else (packed.quad, packed.n_quad))
+        rows = tab[q * ch.CL:min((q + 1) * ch.CL, n_rows)]
+        if rows.shape[0] == 0:
+            continue
+        t_lo, t_hi = box[k, 0:3] * ir - o_lo, box[k, 3:6] * ir - o_hi
+        near = torch.minimum(t_lo, t_hi).amax(dim=1)
+        far = torch.maximum(t_lo, t_hi).amin(dim=1)
+        enter = ((box[k, 0] <= box[k, 3]) & (near <= far) & (far > T_MIN)
+                 & (near <= bound))
+        alone = dataclasses.replace(
+            packed, accel="none", accel_tab=None, n_accel=0, n_sph_sub=0,
+            sph=rows if sphere else packed.sph[:0],
+            n_sph=rows.shape[0] if sphere else 0,
+            quad=packed.quad[:0] if sphere else rows,
+            n_quad=0 if sphere else rows.shape[0])
+        t = ch.closest_hit_reference(alone, rays)[ch.ROW_T]
+        tests[0 if sphere else 1] += (int(enter.sum())
+                                      * int((rows[:, -1] != 0).sum()))
+        bound = torch.minimum(bound, torch.where(enter, t, float("inf")))
+    return tests[0], tests[1], R * packed.n_accel, 0, 0
 
 
 def bound_ms(packed, R, n_tests):
@@ -658,7 +725,8 @@ def rows_equal_joined(name, packed, rays):
 def parity_and_timing(dev, card):
     """Phase 4.  Returns {mode: {"err", "ms", "ms_back_to_back",
     "plain_ms", "bound_ms", "bound_by"}} at scene 9's shapes (the bound of
-    the tests counted), and the ray sets {name: (scene, rays, plain
+    the tests counted; for "cull" of the running bound's,
+    ``running_bound_tests``), and the ray sets {name: (scene, rays, plain
     output)}."""
     world1, cam1 = sc.random_spheres()
     world9, cam9 = sc.final_scene(400, 250, 4)
@@ -698,7 +766,7 @@ def parity_and_timing(dev, card):
             s16.data, s16.meta, cam16.lookfrom, R_SILHOUETTES, 13).to(dev)),
     }
     err = dict.fromkeys(ch.ACCELS, 0.0)
-    times, b2b, tests, out_sets = {}, {}, {}, {}
+    times, b2b, tests, need, out_sets = {}, {}, {}, {}, {}
     for name, (scene, rays) in sets.items():
         R = rays.shape[1]
         want = ch.closest_hit_reference(scene.packed["none"], rays)
@@ -718,22 +786,46 @@ def parity_and_timing(dev, card):
         plain = row["plain"] = time_ms(lambda: ch.closest_hit_reference(
             scene.packed["none"], rays), reps=3, warmup=1)
         times[name] = row
+        need[name] = running_bound_tests(scene.packed["cull"], rays)
         parts = []
         for m in ch.ACCELS:
             t_bytes, t_ops = bound_parts(scene.packed[m], R, tests[name][m])
-            n_s, n_q, n_b, n_a = tests[name][m]
+            n_s, n_q, n_b, n_a, n_p = tests[name][m]
+            least = ""
+            if m == "cull":
+                rb_s, rb_q = need[name][:2]
+                least = (f"; the running bound's {rb_s / R:.2f} sphere + "
+                         f"{rb_q / R:.2f} quad + {n_b / R:.1f} box slab "
+                         f"tests a ray: operations bound "
+                         f"{bound_parts(scene.packed[m], R, need[name])[1]:.4f}"
+                         f" ms")
             parts.append(f"{m} {row[m]:.4f} ms, back to back "
                          f"{b2b[name][m]:.4f} ms (operations bound "
                          f"{t_ops:.4f} ms for {n_s / R:.2f} sphere + "
                          f"{n_q / R:.2f} quad + {n_a / R:.2f} axis-aligned "
                          f"quad + {n_b / R:.1f} "
                          f"{'node' if m == 'bvh' else 'box'} slab tests a "
-                         f"ray, bytes bound {t_bytes:.4f} ms)")
+                         f"ray{f', {n_p / R:.2f} pairs a ray' if n_p else ''}"
+                         f", bytes bound {t_bytes:.4f} ms{least})")
         brute = bound_parts(scene.packed["none"], R,
                             brute_force_tests(scene.packed["none"], R))[1]
         log(f"timing {name} R={R}: " + ", ".join(parts)
             + f", plain {plain:.4f} ms; none brute-force operations bound "
             f"{brute:.4f} ms | {card}")
+    log("four-way back to back (ms; " + " / ".join(ch.ACCELS) + "): "
+        + ", ".join(f"{name} " + " / ".join(f"{b2b[name][m]:.4f}"
+                                             for m in ch.ACCELS)
+                    for name in ("scene1", "scene7", "scene9", "spread16k"))
+        + f" | {card}")
+    for name in ("scene9", "spread16k", "scene7"):
+        scene, rays = sets[name]
+        split = device_split(
+            lambda: ch._launch(scene.packed["cull"], rays, T_MIN),
+            "closest_hit_cull_")
+        log(f"cull kernels {name} R={rays.shape[1]}, device us a call: "
+            + ", ".join(f"{k.removeprefix('closest_hit_cull_')} {v:.2f}"
+                        for k, v in split.items())
+            + f"; sum {sum(split.values()):.2f} | {card}")
     quad_share(s7, sets["scene7"][1], card)
     # scene 9's lamp, its one quad outside the boxes, is axis-aligned
     assert tests["scene9"]["none"][3] == sets["scene9"][1].shape[1]
@@ -742,7 +834,11 @@ def parity_and_timing(dev, card):
             for name in ("scene9", "scene5", "scene6_edges")}
     out = {}
     for mode in ch.ACCELS:
-        b, by = bound_ms(s9.packed[mode], R_SCENE9, tests["scene9"][mode])
+        # "cull"'s bound: the work its function needs (the running bound's
+        # tests), not the more its kernels do
+        b, by = bound_ms(s9.packed[mode], R_SCENE9,
+                         need["scene9"] if mode == "cull"
+                         else tests["scene9"][mode])
         out[mode] = {"err": err[mode], "ms": times["scene9"][mode],
                      "ms_back_to_back": b2b["scene9"][mode],
                      "plain_ms": times["scene9"]["plain"], "bound_ms": b,
@@ -882,21 +978,22 @@ def bwd_runs(args):
     return runs, runs * 4 * (2 * (ch.REC_TERMS + k_join) + 3)
 
 
-def bwd_split(args, calls=20):
-    """{kernel: device us a call} of the backward's kernels and memset,
-    from torch.profiler over ``calls`` calls."""
+def device_split(fn, prefix, calls=20):
+    """{kernel: device us a call} of ``calls`` calls of ``fn`` under
+    torch.profiler, after three unprofiled ones: kernels named from
+    ``prefix`` on (``closest_hit_bwd_``: the backward's), others by their
+    name's first 40 characters."""
     for _ in range(3):
-        ch._launch_bwd(*args)
+        fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            ch._launch_bwd(*args)
+            fn()
         torch.cuda.synchronize()
-    kernels = device_times(prof)[0]
-    return {(re.search(r"closest_hit_bwd_\w+", e.key) or e).group(0)
-            if "closest_hit_bwd_" in e.key else e.key[:40]:
-            _device_us(e) / calls for e in kernels}
+    return {(re.search(prefix + r"\w+", e.key) or e).group(0)
+            if prefix in e.key else e.key[:40]:
+            _device_us(e) / calls for e in device_times(prof)[0]}
 
 
 def capture_step_bounce(dev):
@@ -968,7 +1065,8 @@ def backward_parity_and_timing(dev, card, sets):
     b, by = bwd_bound_ms(args)
     runs, run_bytes = bwd_runs(args)
     log(f"bwd kernels scene1 grad, device us a call under torch.profiler: "
-        + ", ".join(f"{k} {v:.2f}" for k, v in bwd_split(args).items()))
+        + ", ".join(f"{k} {v:.2f}" for k, v in device_split(lambda: ch._launch_bwd(*args),
+                                 "closest_hit_bwd_").items()))
     hits = int((args[1] > 0).sum())
     ground = int((args[2][args[1] == K_SPHERE] == int(torch.argmax(
         s1.data.sph_radius))).sum())
@@ -1160,18 +1258,23 @@ def render_pair(data, meta, cam, dev):
     return a.cpu().numpy(), b.cpu().numpy(), counts
 
 
-def main_path(name, world, cam, dev, card, profiled=False):
-    """Drive ``render_wavefront`` once at ``cam``'s config; returns the
-    launch counts per mode.  ``profiled``: then render the same frame once
-    more under ``torch.profiler`` and print the closest-hit kernels' share
-    of device time and the device's idle share of the first run's wall."""
+def main_path(name, world, cam, dev, card, accel=None, profiled=False,
+              profile_tasks=None):
+    """Drive ``render_wavefront`` once at ``cam``'s config (``accel``: the
+    closest-hit mode, None for the auto policy); returns the launch counts
+    per mode, the image and the wall seconds.  ``profiled``: then render
+    the same frame, or the task range ``profile_tasks`` (a window, timed
+    once unprofiled, whose profile is summarised in a fraction of a whole
+    frame's time), once more under ``torch.profiler`` and print the
+    closest-hit kernels' share of device time and the device's idle share
+    of the unprofiled wall."""
     data, meta = world.compile()
     spp = cam.sqrt_spp ** 2
     n_paths = cam.image_width * cam.image_height * spp
     reset_counts()
     t0 = time.perf_counter()
     img, stats = render_wavefront(data, meta, cam, dev, seed=SEED,
-                                  return_stats=True)
+                                  return_stats=True, accel=accel)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
@@ -1188,20 +1291,31 @@ def main_path(name, world, cam, dev, card, profiled=False):
         f"{stats['iterations']} rounds, kernel launches {counts}, "
         f"image mean {mean:.5f} | {card}")
     if profiled:
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            render_wavefront(data, meta, cam, dev, seed=SEED)
+        kw, what, p_wall = {}, "frame", wall
+        if profile_tasks is not None:
+            kw = {"task_range": profile_tasks}
+            what = f"tasks [{profile_tasks[0]}, {profile_tasks[1]})"
+            t0 = time.perf_counter()
+            render_wavefront(data, meta, cam, dev, seed=SEED, accel=accel,
+                             **kw)
+            torch.cuda.synchronize()
+            p_wall = time.perf_counter() - t0
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            render_wavefront(data, meta, cam, dev, seed=SEED, accel=accel,
+                             **kw)
             torch.cuda.synchronize()
         _, busy_us, n_launch, modes = device_times(prof)
         assert busy_us > 0, f"{name}: the profiler saw no device time"
-        log(f"main path {name} profiled: device busy {busy_us / 1e6:.4f} s "
-            f"(idle share {1 - busy_us / 1e6 / wall:.4f} of the unprofiled "
-            f"wall), {n_launch} device kernels; closest-hit share of device "
-            f"time " + ", ".join(f"{m} {us / busy_us:.4f} ({us / 1e3:.3f} "
-                                 f"ms)" for m, us in modes.items() if us)
+        log(f"main path {name} profiled ({what}): device busy "
+            f"{busy_us / 1e6:.4f} s (idle share "
+            f"{1 - busy_us / 1e6 / p_wall:.4f} of the unprofiled wall "
+            f"{p_wall:.3f} s), {n_launch} device kernels; closest-hit share "
+            f"of device time " + ", ".join(
+                f"{m} {us / busy_us:.4f} ({us / 1e3:.3f} ms)"
+                for m, us in modes.items() if us)
             + f" | {card}")
-    return counts
+    return counts, img, wall
 
 
 def out_dir():
@@ -1251,7 +1365,7 @@ def cli_main_path(dev, card, aaq):
     data, meta = world.compile()
     want = render_wavefront(data, meta, cam, dev, seed=SEED).cpu().numpy()
     frac, mdiff = assert_images_close(img, want)
-    R, (n_s, n_q, n_b, n_a) = aaq["R"], aaq["tests"]
+    R, (n_s, n_q, n_b, n_a, _) = aaq["R"], aaq["tests"]
     log(f"main path cli render 5 {W}x{H} @ {rec['spp']}spp depth "
         f"{rec['bounce_limit']} (in-process): "
         f"wall {rec['wall_s']:.3f} s, {rec['paths_per_s']:.1f} paths/s, "
@@ -1416,8 +1530,13 @@ def main():
     assert len(atomics) == 6 and not any(atomics.values()), atomics
     log(f"sass: no float atomic in the backward's kernels "
         f"({', '.join(atomics)})")
+    atomics = float_atomics("closest_hit", "closest_hit_cull_")
+    assert len(atomics) == 8 and not any(atomics.values()), atomics
+    log(f"sass: no float atomic in the \"cull\" kernels "
+        f"({', '.join(atomics)})")
     for kernel in ("closest_hit_none_kernel<false",
-                   "closest_hit_bvh_kernel<false"):
+                   "closest_hit_bvh_kernel<false",
+                   "closest_hit_cull_test_kernel<false"):
         for (label, part), counts in sass_mix("closest_hit", kernel).items():
             log(f"sass {label} {part}: " + ", ".join(
                 f"{k} {v}" for k, v in counts.items() if v))
@@ -1437,7 +1556,7 @@ def main():
 
     # ---- 5. main path: scene 1 at its bench config ----
     world1, cam1 = sc.random_spheres()
-    counts1 = main_path("scene1", world1, cam1, dev, card)
+    counts1 = main_path("scene1", world1, cam1, dev, card)[0]
     data1, meta1 = world1.compile()
     small = cam1.replace(image_width=200, image_height=112, sqrt_spp=4)
     a, b, _ = render_pair(data1, meta1, small, dev)
@@ -1451,7 +1570,7 @@ def main():
 
     # ---- 6. main path: scene 9 at its code-true config ----
     world9, cam9 = sc.final_scene(400, 250, 4)
-    counts9 = main_path("scene9", world9, cam9, dev, card)
+    counts9 = main_path("scene9", world9, cam9, dev, card)[0]
     assert counts9["none"] > 0, "scene 9's auto accel should be none"
 
     # ---- 7. scene 9 four ways: none, bvh, cull kernels and plain ----
@@ -1487,7 +1606,7 @@ def main():
             f"image mean {float(a.mean()):.4f}")
     world16, cam16 = sc.spread_spheres()
     counts16m = main_path("spread16k", world16, cam16, dev, card,
-                          profiled=True)
+                          profiled=True)[0]
     assert counts16m["bvh"] > 0, "16k spheres: the auto policy ran no bvh"
     data16, meta16 = world16.compile()
     small16 = cam16.replace(image_width=160, image_height=90, sqrt_spp=2,
@@ -1525,13 +1644,52 @@ def main():
     viewer_path(dev)
     log(f"phase 15 done at {time.perf_counter() - t_start:.1f} s")
 
+    # ---- 16. main path, forced "cull": scene 9 at 400x400, 16 spp ----
+    cam9c = cam9.replace(sqrt_spp=4)
+    WH = cam9c.image_width * cam9c.image_height
+    runs = {}
+    # none, cull, cull, none: each mode once before and once after the
+    # other, so that the order of the runs cancels from the comparison; the
+    # second "cull" run is profiled over WH tasks from WH / 2 (the second
+    # half of layer 0 and the first of layer 1: every pixel once, and more
+    # than the 2^16-lane pool holds)
+    for k, mode in enumerate((None, "cull", "cull", None)):
+        runs.setdefault(mode, []).append(main_path(
+            "scene9 16spp" + (" accel=cull" if mode else ""), world9, cam9c,
+            dev, card, accel=mode, profiled=k == 2,
+            profile_tasks=(WH // 2, WH // 2 + WH)))
+    counts9c, counts9n = runs["cull"][0][0], runs[None][0][0]
+    assert counts9c["cull"] > 0 and counts9c["none"] == counts9c["bvh"] == 0
+    assert counts9n["cull"] == 0 and counts9n["none"] > 0
+    assert runs["cull"][1][0] == counts9c and runs[None][1][0] == counts9n
+    # both modes give the plain scan's hits bit for bit and the rest of the
+    # render is the same; a pixel deposits at most once a round (a task
+    # lives at most 8 samples x 5 segments = 5 rounds, and its pixel's next
+    # task comes WH tasks later), so index_add_ adds in one order
+    imgs = [img for mode in (None, "cull") for _, img, _ in runs[mode]]
+    diff = max(float((img - imgs[0]).abs().max()) for img in imgs[1:])
+    walls = {m: [w for _, _, w in runs[m]] for m in runs}
+    log(f"phase 16 none / cull walls (s), in run order none, cull, cull, "
+        f"none: {walls[None][0]:.3f}, {walls['cull'][0]:.3f}, "
+        f"{walls['cull'][1]:.3f}, {walls[None][1]:.3f}; mean none "
+        f"{statistics.mean(walls[None]):.3f}, cull "
+        f"{statistics.mean(walls['cull']):.3f}; four images bit-equal "
+        f"{all(torch.equal(img, imgs[0]) for img in imgs[1:])} (max |diff| "
+        f"{diff:.3e}) | {card}")
+    assert all(torch.equal(img, imgs[0]) for img in imgs[1:]), \
+        "phase 16: the none and cull renders differ"
+    del runs, imgs
+    log(f"phase 16 done at {time.perf_counter() - t_start:.1f} s")
+
     launches = {"none": counts9["none"], "bvh": counts16m["bvh"],
-                "cull": four_counts["cull"], "bwd": counts10["bwd"],
+                "cull": counts9c["cull"], "bwd": counts10["bwd"],
                 "aaq": counts13["none"]}
     log(f"launches: none {counts9['none']} (scene 9 main path; scene 1 main "
         f"path {counts1['none']}), bvh {launches['bvh']} (spread16k main "
         f"path; scene 9 four-way {four_counts['bvh']}, spread16k 160x90 "
-        f"{counts16['bvh']}), cull {launches['cull']} (scene 9 four-way), "
+        f"{counts16['bvh']}), cull {launches['cull']} (the forced-cull "
+        f"scene 9 main path, 400x400 16 spp; scene 9 four-way "
+        f"{four_counts['cull']}), "
         f"bwd {launches['bwd']} (the train step main path, "
         f"{len(GRAD_SEEDS)} steps), none with the axis-aligned path "
         f"{launches['aaq']} (the cli render 5 main path; progressive scene "

@@ -32,12 +32,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
+_LP = ctypes.POINTER(_L)
 # C signatures of each library's exported functions: (restype, argtypes).
 SIGNATURES = {
     "closest_hit": {
         "mort_closest_hit": (_I, (_P, _I, _P, _I, _P, _I, _P, _I, _I, _F,
-                                  _I, _P, _I, _I, _P, _P, _P, _I, _I, _P,
-                                  _P, _I, _I, _P, _P, _P)),
+                                  _I, _P, _I, _P, _P, _P, _I, _I, _P, _P,
+                                  _I, _I, _P, _P, _P)),
+        "mort_closest_hit_cull": (_I, (_P, _I, _P, _I, _P, _I, _P, _I, _I,
+                                       _F, _P, _I, _I, _I, _P, _P, _P, _L,
+                                       _P, _L, _P)),
+        "mort_closest_hit_cull_scratch": (None, (_I, _I, _LP, _LP)),
         "mort_closest_hit_bwd": (_I, (_P, _I, _P, _P, _P, _P, _P, _I, _P,
                                       _I, _I, _I, _I, _F, _P, _P, _P, _P,
                                       _P, _L, _P, _L, _P)),

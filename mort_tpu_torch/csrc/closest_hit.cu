@@ -10,8 +10,10 @@
 //           closed-box path _aab_best (as a slab cull in front of the
 //           general face test), the merge and the row emit _emit_row (its
 //           notes are at the kernel, below);
-//   "cull"  the same tests, one CL-sized sub-cluster at a time, each behind
-//           an AABB slab test (cluster_boxes, widened: box_enters);
+//   "cull"  the same tests over the CL-sized sub-clusters whose AABB
+//           (cluster_boxes, widened: box_enters) a ray enters, laid out
+//           sub-cluster-major in bins of those rays (notes at the kernels,
+//           below);
 //   "bvh"   traversal of an implicit heap whose leaves are single rows (the
 //           JAX package's heap cluster_tree had 128-row leaves; notes at
 //           the kernel, below);
@@ -26,12 +28,11 @@
 // one indexed load, and a traversal per ray that visits children near-first
 // by their slab entry.
 //
-// What bounds "none" on an H100 is float32 issue (its notes, below).
-// "cull" and "bvh" (one thread per ray) read each visited
-// sub-cluster's, node's or leaf's records from global memory (__ldg,
-// L1/L2-resident for scenes of a few thousand primitives): their work is
-// the tests a ray's pruning leaves it, and divergence between the rays of
-// a warp.
+// What bounds "none" and "cull" on an H100 is float32 issue (their notes,
+// below).  "bvh" (one thread per ray) reads each visited node's or leaf's
+// records from global memory (__ldg, L1/L2-resident for scenes of a few
+// thousand primitives): its work is the tests a ray's pruning leaves it,
+// and divergence between the rays of a warp.
 //
 // Arithmetic: every add, subtract, multiply, divide and square root of a
 // primitive test is an explicitly rounded intrinsic (__fadd_rn, __fmul_rn,
@@ -55,6 +56,8 @@
 // never win.  A miss writes t = +inf, kind 0, idx 0 and the joined row 0,
 // as the JAX kernel's gather does.
 
+#include <algorithm>
+
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -73,7 +76,7 @@ constexpr int kCL = 128;        // primitives per sub-cluster (closest_hit.CL)
 constexpr int kBoxCols = 8;     // cull boxes: lo xyz, hi xyz, 0, 0; closed
                                 // boxes: lo xyz, hi xyz, max |corner|, 0
 constexpr float kTiny = 1e-30f; // slab substitute for a zero direction
-constexpr int kModeNone = 0, kModeCull = 1, kModeBvh = 2;
+constexpr int kModeNone = 0, kModeBvh = 2;   // "cull" (1): its own entry
 constexpr int kAaqCols = 8;     // aaq_tab: n_k D a_i qa b_j qb row live
 constexpr int kGroupCols = 5;   // aaq_groups: start n k i j
 
@@ -278,14 +281,15 @@ __device__ __forceinline__ void aaq_scan(
 }
 
 // Adds one thread's sphere, quad, box slab and axis-aligned quad test counts
-// to n_tests[0..3].
+// and its "cull" pairs (ray, entered sub-cluster) to n_tests[0..4].
 __device__ __forceinline__ void add_counts(unsigned long long* n_tests,
                                            int n_s, int n_q, int n_b = 0,
-                                           int n_a = 0) {
+                                           int n_a = 0, int n_p = 0) {
   if (n_s) atomicAdd(n_tests, (unsigned long long)n_s);
   if (n_q) atomicAdd(n_tests + 1, (unsigned long long)n_q);
   if (n_b) atomicAdd(n_tests + 2, (unsigned long long)n_b);
   if (n_a) atomicAdd(n_tests + 3, (unsigned long long)n_a);
+  if (n_p) atomicAdd(n_tests + 4, (unsigned long long)n_p);
 }
 
 // Merge (sphere wins ties) and write the winner's joined row, t, kind, idx.
@@ -627,66 +631,6 @@ closest_hit_none_kernel(const float* __restrict__ rays, int R,
 
   if (!live) return;
   if constexpr (kCount) add_counts(n_tests, n_s, n_q, n_b, n_a);
-  emit(r, best, best_i, qt, qi, joined, k_join, quad_base, R, i, row_out);
-}
-
-// Every primitive of sub-cluster s: sphere rows for s < n_sph_sub, then
-// quad rows.  With kCount, adds the tests to n_s / n_q.
-template <bool kCount>
-__device__ __forceinline__ void test_leaf(
-    const Ray& r, int s, const float* __restrict__ sph, int n_sph,
-    const float* __restrict__ quad, int n_quad, int n_sph_sub, float& best,
-    int& best_i, float& qt, int& qi, int& n_s, int& n_q) {
-  if (s < n_sph_sub) {
-    const int end = min((s + 1) * kCL, n_sph);
-    for (int j = s * kCL; j < end; ++j) {
-      const bool tested =
-          sphere_test(r, RowRec{sph + (size_t)j * kSphCols}, j, best, best_i);
-      if constexpr (kCount) n_s += tested;
-    }
-  } else {
-    const int q = s - n_sph_sub;
-    const int end = min((q + 1) * kCL, n_quad);
-    for (int j = q * kCL; j < end; ++j) {
-      const bool tested =
-          quad_test(r, RowRec{quad + (size_t)j * kQuadCols}, j, qt, qi);
-      if constexpr (kCount) n_q += tested;
-    }
-  }
-}
-
-// "cull": every sub-cluster in order (spheres first), each behind its
-// widened box (closest_hit.cull_boxes: cluster_boxes widened by its pad,
-// the scene's smallest sphere radius in column 6).
-template <bool kCount>
-__global__ void __launch_bounds__(kThreads)
-closest_hit_cull_kernel(const float* __restrict__ rays, int R,
-                        const float* __restrict__ sph, int n_sph,
-                        const float* __restrict__ quad, int n_quad,
-                        const float* __restrict__ joined, int k_join,
-                        int quad_base, float t_min,
-                        const float* __restrict__ boxes, int n_sph_sub,
-                        int n_sub, float* __restrict__ row_out,
-                        unsigned long long* __restrict__ n_tests) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= R) return;
-  const Ray r = load_ray(rays, R, i, t_min);
-  const Slab b = make_slab(r, __ldg(boxes + 6));
-  const float rcp_a = __frcp_rn(r.a);
-  float best = CUDART_INF_F, qt = CUDART_INF_F;
-  int best_i = 0, qi = 0, n_s = 0, n_q = 0;
-  for (int s = 0; s < n_sub; ++s) {
-    // spheres prune against their own best; quads (after every sphere)
-    // against min(quad best, sphere best)
-    const float bound = fminf(mul(best, rcp_a), qt);
-    const float* p = boxes + (size_t)s * kBoxCols;
-    float t_in;
-    if (box_enters(b, __ldg(p), __ldg(p + 3), __ldg(p + 1), __ldg(p + 4),
-                   __ldg(p + 2), __ldg(p + 5), t_min, bound, t_in))
-      test_leaf<kCount>(r, s, sph, n_sph, quad, n_quad, n_sph_sub, best,
-                        best_i, qt, qi, n_s, n_q);
-  }
-  if constexpr (kCount) add_counts(n_tests, n_s, n_q);
   emit(r, best, best_i, qt, qi, joined, k_join, quad_base, R, i, row_out);
 }
 
@@ -1335,6 +1279,387 @@ closest_hit_bwd_key_kernel(const float* __restrict__ chunk_val, int k_join,
   }
 }
 
+// ---- "cull" ----
+//
+// Replaces _make_kernel's "cull" branch (the JAX package's walk over the
+// 128-row sub-clusters of cluster_boxes, each behind its box, with
+// cluster_reachable's packet-wide test).  On the TPU a sub-cluster was a
+// vector step for a whole packet of rays.  A thread walking the
+// sub-clusters for its own ray would pay, in a warp, for every sub-cluster
+// any of its 32 rays enters, and a call would end with the rays that enter
+// the most: on scene 9's camera and bounce rays a ray enters ~3.5 of the
+// 28 sub-clusters and a warp ~17.5 (PERF.md, "cull"'s step 0).
+//
+// So the work is laid out sub-cluster-major, by the pairs (ray, sub-cluster
+// the ray enters), in six kernels on one stream:
+//
+//   closest_hit_cull_mask_kernel   one thread a ray slab-tests every box of
+//       cull_boxes (staged in shared memory; box_enters with the bound
+//       +inf) and writes one bit a sub-cluster, n_words 32-bit words a ray;
+//       a block is a tile of kThreads rays, which counts, for each
+//       sub-cluster, its rays that enter it (a ballot for each bit some
+//       lane of a warp has); it also resets the ray's two keys;
+//   closest_hit_cull_scan_kernel   one block a sub-cluster: the exclusive
+//       scan of its tiles' counts, each tile's first slot in its bin;
+//   closest_hit_cull_bins_kernel   one block: each bin's first slot and
+//       first chunk of kCullThreads slots (scans of the bins' lengths);
+//   closest_hit_cull_place_kernel   each ray writes its index into the bin
+//       of every sub-cluster it enters, at its tile's first slot plus its
+//       rank among the tile's rays that enter it: the bins hold the rays in
+//       ray order, from integer counts alone;
+//   closest_hit_cull_test_kernel   a fixed grid (no host read of the pair
+//       count): each block takes chunks of kCullThreads listed rays from a
+//       counter until none is left (faster than a fixed contiguous run of
+//       chunks a block: PERF.md), stages a chunk's sub-cluster rows in
+//       shared memory with cp.async (pipelined, read back by lds_sph and
+//       lds_quad), and each thread tests its listed ray against every row,
+//       so every lane of a warp works; the ray's lexicographic (t, row)
+//       minimum over those rows is folded into its sphere or quad key by
+//       an integer atomicMin;
+//   closest_hit_cull_emit_kernel   one thread a ray reads its two keys and
+//       runs emit (the merge, a sphere winning an exact tie, and the row).
+//
+// A key is (t bits << 32) | row: t is a positive float32 (a root above
+// t_min a > 0 or a quad t above t_min), whose bits order as the float, and
+// +inf orders after every finite t; a miss is (+inf, 0), emit's state for a
+// ray that tested nothing.  The minimum of the keys is the lexicographic
+// (t, row) minimum over every row the ray tested, whatever the order of the
+// atomics, so two launches give the same bits; no float atomic.  The bound
+// of the slab test is +inf: a ray tests every sub-cluster whose widened box
+// it enters, a superset of what a running bound would let it test, and an
+// extra test cannot change the minimum (the boxes hold every hit the tests
+// report: box_enters, _widen).  The sphere and quad tests are the other
+// modes' own, so the result is the plain scan's bit for bit.
+//
+// Scratch (CullScratch below, its sizes exported by
+// mort_closest_hit_cull_scratch): the masks, the tiles' counts and slots,
+// the bins' lengths, first slots and first chunks, the chunk counter, R x
+// n_sub slots of bins (every ray may enter every box; the wrapper splits
+// the rays so that each launch's R n_sub stays within
+// closest_hit.CULL_MAX_PAIRS) and two keys a ray.
+//
+// What bounds it on an H100: float32 issue in the test kernel (~3.5 x 128
+// row tests a ray on scene 9), then the mask kernel's n_sub slab tests a
+// ray and the emit's 32 rows out.
+constexpr int kCullThreads = 128;   // listed rays of a chunk: the test
+                                    // kernel's block
+constexpr int kCullBlocks = 8;      // test blocks an SM (the grid's share)
+constexpr unsigned long long kMissKey = 0x7f80000000000000ull;   // (+inf, 0)
+
+__device__ __forceinline__ unsigned long long hit_key(float t, int row) {
+  return (unsigned long long)__float_as_uint(t) << 32 | (unsigned)row;
+}
+
+// In lane b, the rays of the warp whose word has bit b set; only the bits
+// some lane has are balloted.
+__device__ __forceinline__ int bit_count(unsigned word) {
+  const int lane = threadIdx.x & 31;
+  int n = 0;
+  for (unsigned any = __reduce_or_sync(kFull, word); any; any &= any - 1) {
+    const int b = __ffs(any) - 1;
+    const unsigned bal = __ballot_sync(kFull, (word >> b) & 1u);
+    if (lane == b) n = __popc(bal);
+  }
+  return n;
+}
+
+template <bool kCount>
+__global__ void __launch_bounds__(kThreads)
+closest_hit_cull_mask_kernel(const float* __restrict__ rays, int R,
+                             float t_min, const float* __restrict__ boxes,
+                             int n_sub, unsigned* __restrict__ mask,
+                             int* __restrict__ slot, int n_tiles,
+                             unsigned long long* __restrict__ keys,
+                             unsigned long long* __restrict__ n_tests) {
+  __shared__ __align__(16) float s_buf[2 * kStage];
+  __shared__ int s_cnt[kWarps][32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tile = blockIdx.x;
+  const int i = tile * kThreads + tid;
+  const bool live = i < R;
+  // ragged tail: compute on a real ray, so every thread reaches the barriers
+  const Ray r = load_ray(rays, R, live ? i : R - 1, t_min);
+  const Slab b = make_slab(r, __ldg(boxes + 6));
+  if (live) {
+    keys[i] = kMissKey;
+    keys[R + i] = kMissKey;
+  }
+  int pairs = 0;
+  pipelined(
+      n_sub, kBoxTile, s_buf,
+      [&](float* dst, int base, int n) {
+        const float* src = boxes + (size_t)base * kBoxCols;
+        for (int e = tid; e < n * (kBoxCols / 4); e += kThreads)
+          cp_async16(dst + 4 * e, src + 4 * e);
+      },
+      [&](const float* tile_buf, int base, int n) {
+        // lo xyz, hi x | hi yz, r_min, 0; a tile is whole words of boxes
+        const float4* t4 = reinterpret_cast<const float4*>(tile_buf);
+        for (int w0 = 0; w0 < n; w0 += 32) {
+          const int m = min(32, n - w0);
+          unsigned word = 0u;
+          for (int j = 0; j < m; ++j) {
+            const float4 p = t4[2 * (w0 + j)], q = t4[2 * (w0 + j) + 1];
+            float t_in;
+            if (box_enters(b, p.x, p.w, p.y, q.x, p.z, q.y, t_min,
+                           CUDART_INF_F, t_in))
+              word |= 1u << j;
+          }
+          if (live) mask[(size_t)((base + w0) >> 5) * R + i] = word;
+          if constexpr (kCount) pairs += __popc(word);
+        }
+      });
+  // each sub-cluster's rays of the tile, a mask word at a time
+  const int n_words = (n_sub + 31) / 32;
+  for (int w = 0; w < n_words; ++w) {
+    s_cnt[warp][lane] = bit_count(live ? mask[(size_t)w * R + i] : 0u);
+    __syncthreads();
+    const int s = w * 32 + tid;
+    if (tid < 32 && s < n_sub) {
+      int c = 0;
+#pragma unroll
+      for (int v = 0; v < kWarps; ++v) c += s_cnt[v][tid];
+      slot[(size_t)s * n_tiles + tile] = c;
+    }
+    __syncthreads();
+  }
+  if constexpr (kCount) {
+    if (live) add_counts(n_tests, 0, 0, n_sub, 0, pairs);
+  }
+}
+
+// One block a sub-cluster s: slot[s n_tiles + t], s's rays of tile t in,
+// the exclusive scan over the tiles out (the first slot of them in s's
+// bin); total[s], the bin's length.
+__global__ void __launch_bounds__(kScanThreads)
+closest_hit_cull_scan_kernel(int* __restrict__ slot, int n_tiles,
+                             int* __restrict__ total) {
+  __shared__ int s_sum[kScanThreads / 32];
+  __shared__ int s_round;
+  int* row = slot + (size_t)blockIdx.x * n_tiles;
+  int carry = 0;
+  for (int t0 = 0; t0 < n_tiles; t0 += kScanThreads) {
+    const int t = t0 + threadIdx.x;
+    const int c = t < n_tiles ? row[t] : 0;
+    const int ex = block_exclusive_scan(c, s_sum);
+    if (t < n_tiles) row[t] = carry + ex;
+    if (threadIdx.x == kScanThreads - 1) s_round = ex + c;
+    __syncthreads();
+    carry += s_round;
+  }
+  if (threadIdx.x == 0) total[blockIdx.x] = carry;
+}
+
+// One block: bin_off[s], the first slot of s's bin (the exclusive scan of
+// the totals), and chunk_off[s], its first chunk of kCullThreads slots;
+// bin_off[n_sub] and chunk_off[n_sub], the pairs and the chunks in all;
+// the test kernel's chunk counter reset.  Each thread scans a contiguous
+// share of the sub-clusters.
+__global__ void __launch_bounds__(kScanThreads)
+closest_hit_cull_bins_kernel(const int* __restrict__ total, int n_sub,
+                             int* __restrict__ bin_off,
+                             int* __restrict__ chunk_off,
+                             int* __restrict__ next) {
+  __shared__ int s_sum[kScanThreads / 32];
+  if (threadIdx.x == 0) *next = 0;
+  const int per = (n_sub + kScanThreads - 1) / kScanThreads;
+  const int s0 = min((int)threadIdx.x * per, n_sub);
+  const int s1 = min(s0 + per, n_sub);
+  auto chunks = [&](int s) {
+    return (total[s] + kCullThreads - 1) / kCullThreads;
+  };
+  int pairs = 0, c = 0;
+  for (int s = s0; s < s1; ++s) {
+    pairs += total[s];
+    c += chunks(s);
+  }
+  int at = block_exclusive_scan(pairs, s_sum);
+  int c_at = block_exclusive_scan(c, s_sum);
+  for (int s = s0; s < s1; ++s) {
+    bin_off[s] = at;
+    chunk_off[s] = c_at;
+    at += total[s];
+    c_at += chunks(s);
+  }
+  if (threadIdx.x == kScanThreads - 1) {
+    bin_off[n_sub] = at;
+    chunk_off[n_sub] = c_at;
+  }
+}
+
+// bins[slot]: each ray in the bin of every sub-cluster it enters, at its
+// tile's first slot there plus the rays of the tile before it that enter
+// it (the warps before its warp, then the lanes before its lane).  A mask
+// word at a time, the first slot of each warp's rays of each of the word's
+// sub-clusters is laid out in shared memory.
+__global__ void __launch_bounds__(kThreads)
+closest_hit_cull_place_kernel(const unsigned* __restrict__ mask, int R,
+                              int n_sub, const int* __restrict__ slot,
+                              int n_tiles, const int* __restrict__ bin_off,
+                              int* __restrict__ bins) {
+  __shared__ int s_cnt[kWarps][32];
+  __shared__ int s_at[kWarps][32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tile = blockIdx.x;
+  const int i = tile * kThreads + tid;
+  const bool live = i < R;
+  const unsigned below = (1u << lane) - 1u;
+  const int n_words = (n_sub + 31) / 32;
+  for (int w = 0; w < n_words; ++w) {
+    const unsigned my = live ? mask[(size_t)w * R + i] : 0u;
+    s_cnt[warp][lane] = bit_count(my);
+    __syncthreads();
+    const int s = w * 32 + tid;
+    if (tid < 32 && s < n_sub) {
+      int at = bin_off[s] + slot[(size_t)s * n_tiles + tile];
+#pragma unroll
+      for (int v = 0; v < kWarps; ++v) {
+        s_at[v][tid] = at;
+        at += s_cnt[v][tid];
+      }
+    }
+    __syncthreads();
+    for (unsigned any = __reduce_or_sync(kFull, my); any; any &= any - 1) {
+      const int b = __ffs(any) - 1;
+      const unsigned bal = __ballot_sync(kFull, (my >> b) & 1u);
+      if ((my >> b) & 1u) bins[s_at[warp][b] + __popc(bal & below)] = i;
+    }
+    __syncthreads();
+  }
+}
+
+// Each block takes the next chunk from a counter (next, zeroed by the bins
+// kernel) until none is left; chunk g is slots [first, first + n) of the
+// bin of sub-cluster s (the last s with chunk_off[s] <= g).  The rows of s
+// are staged when s changes; each listed ray tests every row and folds its
+// minimum into its key.  The order in which blocks take chunks changes no
+// result: a key's minimum does not depend on it.
+template <bool kCount>
+__global__ void __launch_bounds__(kCullThreads, kCullBlocks)
+closest_hit_cull_test_kernel(const float* __restrict__ rays, int R,
+                             const float* __restrict__ sph, int n_sph,
+                             const float* __restrict__ quad, int n_quad,
+                             float t_min, int n_sph_sub, int n_sub,
+                             const int* __restrict__ bin_off,
+                             const int* __restrict__ chunk_off,
+                             const int* __restrict__ bins,
+                             int* __restrict__ next,
+                             unsigned long long* __restrict__ keys,
+                             unsigned long long* __restrict__ n_tests) {
+  __shared__ __align__(16) float s_rows[kCL * kQuadF];
+  __shared__ int s_g;
+  const int tid = threadIdx.x;
+  const int n_chunks = chunk_off[n_sub];
+  int n_s = 0, n_q = 0, staged = -1;
+  for (;;) {
+    if (tid == 0) s_g = atomicAdd(next, 1);
+    __syncthreads();
+    const int g = s_g;
+    __syncthreads();   // every thread has read s_g before it is rewritten
+    if (g >= n_chunks) break;
+    int lo = 0, hi = n_sub - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (chunk_off[mid] <= g) lo = mid; else hi = mid - 1;
+    }
+    const int s = lo;
+    const int first = bin_off[s] + (g - chunk_off[s]) * kCullThreads;
+    const int n = min(kCullThreads, bin_off[s + 1] - first);
+    const bool sphere = s < n_sph_sub;
+    const int r0 = (sphere ? s : s - n_sph_sub) * kCL;
+    const int rows = min(kCL, (sphere ? n_sph : n_quad) - r0);
+    auto test = [&](const float* tile, int, int n_rows) {
+      if (tid >= n) return;
+      const int i = bins[first + tid];
+      const Ray r = load_ray(rays, R, i, t_min);
+      float t = CUDART_INF_F;
+      int row = 0;
+      if (sphere) {
+        for (int j = 0; j < n_rows; ++j) {
+          const bool tested =
+              sphere_test(r, lds_sph(tile + j * kSphF), r0 + j, t, row);
+          if constexpr (kCount) n_s += tested;
+        }
+      } else {
+        for (int j = 0; j < n_rows; ++j) {
+          const bool tested =
+              quad_test(r, lds_quad(tile + j * kQuadF), r0 + j, t, row);
+          if constexpr (kCount) n_q += tested;
+        }
+      }
+      if (t < CUDART_INF_F)
+        atomicMin(keys + (sphere ? 0 : R) + i, hit_key(t, row));
+    };
+    if (s == staged) {
+      test(s_rows, 0, rows);
+      continue;
+    }
+    // the barriers above: the previous chunk's readers are done; a
+    // sub-cluster is one tile, so only the buffer's first half is used
+    staged = s;
+    pipelined(
+        rows, kCL, s_rows,
+        [&](float* dst, int, int m) {
+          const int cols = sphere ? kSphCols : kQuadCols;
+          const int pitch = sphere ? kSphF : kQuadF;
+          const float* src = (sphere ? sph : quad) + (size_t)r0 * cols;
+          for (int e = tid; e < m * cols; e += kCullThreads) {
+            const int j = e / cols;
+            cp_async4(dst + j * pitch + (e - j * cols), src + e);
+          }
+        },
+        test);
+  }
+  if constexpr (kCount) add_counts(n_tests, n_s, n_q);
+}
+
+__global__ void __launch_bounds__(kThreads)
+closest_hit_cull_emit_kernel(const float* __restrict__ rays, int R,
+                             float t_min,
+                             const unsigned long long* __restrict__ keys,
+                             const float* __restrict__ joined, int k_join,
+                             int quad_base, float* __restrict__ row_out) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= R) return;
+  const Ray r = load_ray(rays, R, i, t_min);
+  const unsigned long long ks = keys[i], kq = keys[R + i];
+  emit(r, __uint_as_float((unsigned)(ks >> 32)), (int)(unsigned)ks,
+       __uint_as_float((unsigned)(kq >> 32)), (int)(unsigned)kq, joined,
+       k_join, quad_base, R, i, row_out);
+}
+
+// The scratch of a "cull" launch: R rays in n_tiles tiles, n_sub
+// sub-clusters in n_words mask words.  Its sizes are exported
+// (mort_closest_hit_cull_scratch), so the caller allocates what this layout
+// needs; with null scratch only the sizes are set.
+struct CullScratch {
+  int n_tiles, n_words;
+  long long n_int, n_key;
+  unsigned* mask = nullptr;            // [n_words, R]
+  int *slot = nullptr, *total = nullptr;       // [n_sub, n_tiles], [n_sub]
+  int *bin_off = nullptr, *chunk_off = nullptr;  // [n_sub + 1] each
+  int* next = nullptr;                 // the test kernel's chunk counter
+  int* bins = nullptr;                 // [R n_sub]
+  unsigned long long* keys = nullptr;  // [2, R]: sphere, quad
+
+  CullScratch(int R, int n_sub, int* si, unsigned long long* sk) {
+    n_tiles = (R + kThreads - 1) / kThreads;
+    n_words = (n_sub + 31) / 32;
+    n_int = (long long)n_words * R + (long long)n_sub * n_tiles + 3LL * n_sub +
+            3 + (long long)R * n_sub;
+    n_key = 2LL * R;
+    if (si == nullptr || sk == nullptr) return;
+    mask = reinterpret_cast<unsigned*>(si);
+    slot = si + (long long)n_words * R;
+    total = slot + (long long)n_sub * n_tiles;
+    bin_off = total + n_sub;
+    chunk_off = bin_off + n_sub + 1;
+    next = chunk_off + n_sub + 1;
+    bins = next + 1;
+    keys = sk;
+  }
+};
+
 // The scratch of a backward launch (closest_hit.bwd_scratch_sizes): R lanes
 // in n_tiles tiles, n_join keys, n_words 32-tile words a key, at most
 // max_chunks level-2 chunks (a key's runs / kChunk, rounded up, summed:
@@ -1383,7 +1708,7 @@ struct FwdArgs {
   int k_join, quad_base;
   float t_min;
   const float* accel;
-  int n_sph_sub, n_accel;
+  int n_accel;
   const float* aab_tab;
   const int* aab_faces;
   const int* gen_rows;
@@ -1404,11 +1729,6 @@ void launch(int mode, const FwdArgs& a, cudaStream_t s) {
         a.rays, a.R, a.sph, a.n_sph, a.quad, a.gen_rows, a.n_gen, a.aab_tab,
         a.aab_faces, a.n_box, a.aaq_tab, a.aaq_groups, a.n_aaq, a.n_groups,
         a.joined, a.k_join, a.quad_base, a.t_min, a.row_out, a.n_tests);
-  } else if (mode == kModeCull) {
-    closest_hit_cull_kernel<kCount><<<grid, kThreads, 0, s>>>(
-        a.rays, a.R, a.sph, a.n_sph, a.quad, a.n_quad, a.joined, a.k_join,
-        a.quad_base, a.t_min, a.accel, a.n_sph_sub, a.n_accel, a.row_out,
-        a.n_tests);
   } else {
     closest_hit_bvh_kernel<kCount><<<grid, kThreads, 0, s>>>(
         a.rays, a.R, a.sph, a.n_sph, a.quad, a.n_quad, a.joined, a.k_join,
@@ -1421,39 +1741,111 @@ void launch(int mode, const FwdArgs& a, cudaStream_t s) {
 
 extern "C" {
 
-// Launches the kernel of `mode` (0 "none", 1 "cull", 2 "bvh") on `stream`
-// and returns cudaGetLastError() (0 on success).  `accel` is the cull boxes
-// [n_accel, 8] whose first `n_sph_sub` hold sphere rows (mode 1), or the
-// bvh nodes [n_accel, 12] with n_accel = L, a power of two up to 2^30,
-// 16-byte aligned (mode 2); unused in mode 0.  Mode 0 reads `aab_tab`
+// Launches the kernel of `mode` (0 "none", 2 "bvh"; "cull" is
+// mort_closest_hit_cull) on `stream` and returns cudaGetLastError() (0 on
+// success).  `accel` is the bvh nodes [n_accel, 12] with n_accel = L, a
+// power of two up to 2^30, 16-byte aligned (mode 2); unused in mode 0.
+// Mode 0 reads `aab_tab`
 // [n_box, 8] (16-byte aligned), `aab_faces` [n_box, 6], `gen_rows` [n_gen],
 // `aaq_tab` [n_aaq, 8] (16-byte aligned) and its `aaq_groups` [n_groups, 5]
 // instead of scanning the n_quad quad rows in order.  Allocates nothing;
-// `row_out` is a [32, R] float32 buffer.  `n_tests`: null, or four counters
-// to which the launch adds the sphere, quad, box (modes 0) or node (mode 2)
+// `row_out` is a [32, R] float32 buffer.  `n_tests`: null, or five counters
+// to which the launch adds the sphere, quad, box (mode 0) or node (mode 2)
 // slab and axis-aligned quad (mode 0) tests it performs (the results do not
 // change).
 int mort_closest_hit(const float* rays, int R, const float* sph, int n_sph,
                      const float* quad, int n_quad, const float* joined,
                      int k_join, int quad_base, float t_min, int mode,
-                     const float* accel, int n_sph_sub, int n_accel,
+                     const float* accel, int n_accel,
                      const float* aab_tab, const int* aab_faces,
                      const int* gen_rows, int n_box, int n_gen,
                      const float* aaq_tab, const int* aaq_groups, int n_aaq,
                      int n_groups, float* row_out,
                      unsigned long long* n_tests, void* stream) {
   if (R <= 0) return (int)cudaGetLastError();
-  if (mode < kModeNone || mode > kModeBvh) return (int)cudaErrorInvalidValue;
-  const FwdArgs a{rays,      R,          sph,       n_sph,   quad,
-                  n_quad,    joined,     k_join,    quad_base, t_min,
-                  accel,     n_sph_sub,  n_accel,   aab_tab, aab_faces,
-                  gen_rows,  n_box,      n_gen,     aaq_tab, aaq_groups,
-                  n_aaq,     n_groups,   row_out,   n_tests};
+  if (mode != kModeNone && mode != kModeBvh)
+    return (int)cudaErrorInvalidValue;
+  const FwdArgs a{rays,     R,        sph,        n_sph,     quad,
+                  n_quad,   joined,   k_join,     quad_base, t_min,
+                  accel,    n_accel,  aab_tab,    aab_faces, gen_rows,
+                  n_box,    n_gen,    aaq_tab,    aaq_groups, n_aaq,
+                  n_groups, row_out,  n_tests};
   cudaStream_t s = (cudaStream_t)stream;
   if (n_tests == nullptr)
     launch<false>(mode, a, s);
   else
     launch<true>(mode, a, s);
+  return (int)cudaGetLastError();
+}
+
+// The int32 and uint64 element counts of the scratch of a "cull" launch of
+// R rays against n_sub sub-clusters (CullScratch).
+void mort_closest_hit_cull_scratch(int R, int n_sub, long long* n_int,
+                                   long long* n_key) {
+  const CullScratch c(R, n_sub, nullptr, nullptr);
+  *n_int = c.n_int;
+  *n_key = c.n_key;
+}
+
+// Launches the "cull" kernels (mask, scan, bins, place, test, emit) on
+// `stream` and returns cudaGetLastError() (cudaErrorInvalidValue, launching
+// nothing, when the scratch is short).  `boxes` [n_sub, 8] (16-byte
+// aligned) are closest_hit.cull_boxes, whose first `n_sph_sub` hold sphere
+// rows; the test kernel's grid is at most n_sm * kCullBlocks blocks.
+// `scratch_i` (int32, n_int) and `scratch_k` (uint64, n_key) are the
+// caller's, sized by mort_closest_hit_cull_scratch (R n_sub < 2^31: the
+// caller splits larger ray sets); the kernels write all of it before
+// reading it.  Allocates nothing;
+// `row_out` is a [32, R] float32 buffer.  `n_tests`: null, or five counters
+// to which the launch adds the sphere, quad and box slab tests it performs
+// and the pairs (ray, entered sub-cluster) of its bins (the results do not
+// change).
+int mort_closest_hit_cull(const float* rays, int R, const float* sph,
+                          int n_sph, const float* quad, int n_quad,
+                          const float* joined, int k_join, int quad_base,
+                          float t_min, const float* boxes, int n_sph_sub,
+                          int n_sub, int n_sm, float* row_out,
+                          unsigned long long* n_tests, int* scratch_i,
+                          long long n_int, unsigned long long* scratch_k,
+                          long long n_key, void* stream) {
+  if (R <= 0) return (int)cudaGetLastError();
+  if (n_sub < 0 || n_sph_sub < 0 || n_sph_sub > n_sub || n_sm < 1 ||
+      (long long)R * n_sub >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const CullScratch c(R, n_sub, scratch_i, scratch_k);
+  if (n_int < c.n_int || n_key < c.n_key) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  // at most a chunk of each bin's pairs / kCullThreads, rounded up
+  const int n_test_blocks = (int)std::min(
+      (long long)n_sm * kCullBlocks,
+      std::max(1LL, (long long)R * n_sub / kCullThreads + n_sub));
+  if (n_tests == nullptr)
+    closest_hit_cull_mask_kernel<false><<<c.n_tiles, kThreads, 0, s>>>(
+        rays, R, t_min, boxes, n_sub, c.mask, c.slot, c.n_tiles, c.keys,
+        n_tests);
+  else
+    closest_hit_cull_mask_kernel<true><<<c.n_tiles, kThreads, 0, s>>>(
+        rays, R, t_min, boxes, n_sub, c.mask, c.slot, c.n_tiles, c.keys,
+        n_tests);
+  if (n_sub > 0)
+    closest_hit_cull_scan_kernel<<<n_sub, kScanThreads, 0, s>>>(
+        c.slot, c.n_tiles, c.total);
+  closest_hit_cull_bins_kernel<<<1, kScanThreads, 0, s>>>(
+      c.total, n_sub, c.bin_off, c.chunk_off, c.next);
+  closest_hit_cull_place_kernel<<<c.n_tiles, kThreads, 0, s>>>(
+      c.mask, R, n_sub, c.slot, c.n_tiles, c.bin_off, c.bins);
+  if (n_tests == nullptr)
+    closest_hit_cull_test_kernel<false><<<n_test_blocks, kCullThreads, 0,
+                                          s>>>(
+        rays, R, sph, n_sph, quad, n_quad, t_min, n_sph_sub, n_sub,
+        c.bin_off, c.chunk_off, c.bins, c.next, c.keys, n_tests);
+  else
+    closest_hit_cull_test_kernel<true><<<n_test_blocks, kCullThreads, 0,
+                                         s>>>(
+        rays, R, sph, n_sph, quad, n_quad, t_min, n_sph_sub, n_sub,
+        c.bin_off, c.chunk_off, c.bins, c.next, c.keys, n_tests);
+  closest_hit_cull_emit_kernel<<<c.n_tiles, kThreads, 0, s>>>(
+      rays, R, t_min, c.keys, joined, k_join, quad_base, row_out);
   return (int)cudaGetLastError();
 }
 

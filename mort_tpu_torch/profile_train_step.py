@@ -77,7 +77,7 @@ def main(argv=None):
     busy_us = sum(_device_us(e) for e in kernels)
     n_launch = sum(e.count for e in kernels)
     fwd_us = sum(_device_us(e) for e in kernels
-                 if any(f"closest_hit_{m}_kernel" in e.key
+                 if any(f"closest_hit_{m}_" in e.key
                         for m in ch.ACCELS))
     # the backward's six kernels (closest_hit_bwd_tile_kernel, ...)
     bwd = [e for e in kernels if "closest_hit_bwd_" in e.key]

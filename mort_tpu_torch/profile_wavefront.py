@@ -43,7 +43,7 @@ def device_times(prof):
     kernels = [e for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA")]
     modes = {m: sum(_device_us(e) for e in kernels
-                    if f"closest_hit_{m}_kernel" in e.key)
+                    if f"closest_hit_{m}_" in e.key)
              for m in ch.ACCELS}
     return (kernels, sum(_device_us(e) for e in kernels),
             sum(e.count for e in kernels), modes)

@@ -36,8 +36,13 @@ quad that is neither axis-aligned nor a face of a closed axis-aligned box
 (``gen_rows``), the axis-aligned quads group by orientation with a test
 specialised to the axes (``aaq_tab``, ``aaq_groups``), then each box of
 ``SceneMeta.aab`` behind a slab test (``aab_tab``) and only the faces of the
-boxes a ray enters (``aab_faces``); ``"cull"`` tests the
-CL-sized sub-clusters of ``cluster_boxes`` behind an AABB slab test;
+boxes a ray enters (``aab_faces``); ``"cull"`` tests the CL-sized
+sub-clusters of ``cluster_boxes`` whose box a ray enters, sub-cluster-major:
+the pairs (ray, entered sub-cluster) are binned by sub-cluster in ray order
+(launches of at most CULL_MAX_PAIRS bin slots, ``cull_slices``; the
+scratch sized by the library), a block tests one bin's rays against its
+sub-cluster's rows staged in shared memory, and each ray's sphere and quad
+(t, row) minima are integer minima of keys (t bits, row);
 ``"bvh"`` traverses ``bvh_tree``, an implicit heap whose leaves are single
 rows (the JAX package's ``cluster_tree`` had the 128-row sub-clusters for
 leaves: a TPU vector step, but 128 tests for a GPU thread).  A mode
@@ -141,8 +146,14 @@ QUAD_PAD = 1e-4  # pad of a quad's box around its four corners
 AAB_SLACK = 2.0 ** -16
 SPHERE_ERR = 2.0 ** -18
 # n_tests counters: sphere tests, quad tests (the general test), box or node
-# slab tests, axis-aligned quad tests (the specialised test of "none")
-N_TESTS = 4
+# slab tests, axis-aligned quad tests (the specialised test of "none"), and
+# the pairs (ray, entered sub-cluster) of "cull"'s bins
+N_TESTS = 5
+# The most bin slots (ray x sub-cluster) of one "cull" launch: _launch
+# splits a larger ray set (cull_slices).  2^25 keeps spread16k's 128
+# sub-clusters at R = 2^18 in one launch (128 MB of int32 bins); the bins'
+# slots are int32, so a launch needs R n_sub < 2^31.
+CULL_MAX_PAIRS = 1 << 25
 AAQ_COLS = 8     # aaq_tab: n_k D a_i qa b_j qb row live (aaq_tables)
 AAQ_GROUP_COLS = 5   # aaq_groups: start n k i j
 
@@ -150,7 +161,8 @@ AAQ_GROUP_COLS = 5   # aaq_groups: start n k i j
 # "none" up to 8192 primitives, "bvh" above.
 BVH_MIN_PRIMS = 8192
 ACCELS = ("none", "cull", "bvh")
-_MODE = {"none": 0, "cull": 1, "bvh": 2}
+# mort_closest_hit's modes ("cull" has its own entry, mort_closest_hit_cull)
+_MODE = {"none": 0, "bvh": 2}
 
 # The backward's order of adds (closest_hit_bwd_ordered): pairwise trees
 # over the lanes of a warp, over the warps of a tile of BWD_TILE lanes (the
@@ -585,13 +597,32 @@ def _check(name, x, dtype, device, ndim, cols=None):
             f"(contiguous={x.is_contiguous()})")
 
 
+def cull_slices(R, n_sub):
+    """The ray ranges [a, b) of the "cull" launches of R rays against n_sub
+    sub-clusters: each launch's bins hold at most CULL_MAX_PAIRS slots.
+    From R and n_sub alone, so a call needs no host sync."""
+    step = max(1, CULL_MAX_PAIRS // max(1, n_sub))
+    return [(a, min(a + step, R)) for a in range(0, R, step)]
+
+
+def _cull_scratch(lib, R, n_sub, dev):
+    """The int32 and int64 scratch of a "cull" launch, sized by the
+    library's own layout (mort_closest_hit_cull_scratch)."""
+    n_int, n_key = ctypes.c_longlong(), ctypes.c_longlong()
+    lib.mort_closest_hit_cull_scratch(R, n_sub, ctypes.byref(n_int),
+                                      ctypes.byref(n_key))
+    return (torch.empty(n_int.value, dtype=torch.int32, device=dev),
+            torch.empty(n_key.value, dtype=torch.int64, device=dev))
+
+
 def _launch(packed: PackedScene, rays: torch.Tensor, t_min: float,
             n_tests: torch.Tensor | None = None):
     """Launch the forward kernel of ``packed.accel``; returns the [32, R]
     output.  ``n_tests``: an optional int64 [N_TESTS] card tensor to which
     the launch adds the sphere tests, general quad tests, box or node slab
     tests and specialised axis-aligned quad tests it performs (rows whose
-    surface flag is 0 are not tests); the results do not depend on it."""
+    surface flag is 0 are not tests) and, in "cull", the pairs (ray,
+    entered sub-cluster) of its bins; the results do not depend on it."""
     from .._build import load_library
 
     dev = rays.device
@@ -616,15 +647,14 @@ def _launch(packed: PackedScene, rays: torch.Tensor, t_min: float,
         _check("accel_tab", tab, torch.float32, dev, 2, cols)
         # "cull": n_acc sub-clusters of CL rows, the first n_ss of spheres;
         # "bvh": L a power of two up to 2^30 (the kernel's 32-bit trail),
-        # at least one leaf a row, each node row 16-byte aligned
+        # at least one leaf a row; both 16-byte aligned rows
         if ((accel == "bvh" and (n_acc < 2 or n_acc > 2 ** 30
                                  or n_acc & (n_acc - 1)
-                                 or n_acc < packed.n_sph + packed.n_quad
-                                 or tab.data_ptr() % 16))
+                                 or n_acc < packed.n_sph + packed.n_quad))
                 or (accel == "cull" and (n_ss * CL < packed.n_sph
                                          or (n_acc - n_ss) * CL
                                          < packed.n_quad))
-                or tab.shape[0] != n_acc):
+                or tab.shape[0] != n_acc or tab.data_ptr() % 16):
             raise ValueError("closest_hit: inconsistent accel table")
         accel_ptr = tab.data_ptr()
     n_box = n_gen = n_aaq = n_grp = 0
@@ -656,22 +686,44 @@ def _launch(packed: PackedScene, rays: torch.Tensor, t_min: float,
     if R >= 2 ** 31 // ROW_K:
         raise ValueError(f"closest_hit: {R} rays exceed the int32 range")
     out = torch.empty((ROW_K, R), dtype=torch.float32, device=dev)
+    tables = (packed.sph.data_ptr(), packed.n_sph, packed.quad.data_ptr(),
+              packed.n_quad, packed.joined.data_ptr(), k_join,
+              packed.quad_base, ctypes.c_float(t_min))
     lib = load_library("closest_hit")
+
+    def check(rc):
+        if rc != 0:
+            raise RuntimeError(
+                f"closest_hit kernel launch failed ({accel}): CUDA error "
+                f"{rc} ({lib.mort_cuda_error_string(rc).decode()})")
+        launch_count[accel] += 1
+
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.mort_closest_hit(
-            rays.data_ptr(), R,
-            packed.sph.data_ptr(), packed.n_sph,
-            packed.quad.data_ptr(), packed.n_quad,
-            packed.joined.data_ptr(), k_join, packed.quad_base,
-            ctypes.c_float(t_min), _MODE[accel], accel_ptr,
-            packed.n_sph_sub, packed.n_accel, *box_ptrs, n_box, n_gen,
-            *aaq_ptrs, n_aaq, n_grp, out.data_ptr(), count_ptr, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"closest_hit kernel launch failed ({accel}): CUDA error {rc} "
-            f"({lib.mort_cuda_error_string(rc).decode()})")
-    launch_count[accel] += 1
+        if accel != "cull":
+            check(lib.mort_closest_hit(
+                rays.data_ptr(), R, *tables, _MODE[accel], accel_ptr,
+                packed.n_accel, *box_ptrs, n_box, n_gen, *aaq_ptrs, n_aaq,
+                n_grp, out.data_ptr(), count_ptr, stream))
+            return out
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        slices = cull_slices(R, packed.n_accel)
+        # the first slice is the largest: its scratch serves every launch
+        # (one stream, so they run one after another)
+        scratch_i, scratch_k = _cull_scratch(
+            lib, slices[0][1] - slices[0][0], packed.n_accel, dev)
+        for a, b in slices:
+            whole = len(slices) == 1
+            part = rays if whole else rays[:, a:b].contiguous()
+            rows = out if whole else torch.empty(
+                (ROW_K, b - a), dtype=torch.float32, device=dev)
+            check(lib.mort_closest_hit_cull(
+                part.data_ptr(), b - a, *tables, accel_ptr, packed.n_sph_sub,
+                packed.n_accel, n_sm, rows.data_ptr(), count_ptr,
+                scratch_i.data_ptr(), scratch_i.numel(),
+                scratch_k.data_ptr(), scratch_k.numel(), stream))
+            if not whole:
+                out[:, a:b] = rows
     return out
 
 

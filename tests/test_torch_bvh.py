@@ -12,12 +12,16 @@ The CUDA "bvh" kernel visits a node by slab-testing both children's boxes,
 goes on into the entered child with the smaller slab entry and marks the
 other, if it was entered too, in a 32-bit trail (one bit a level); at a
 leaf or a dead end it resumes at the sibling of the deepest marked level.
-The "cull" kernel tests the sub-clusters in order, each behind its box.
-``_bvh_mirror`` and ``_cull_mirror`` below are those schedules in plain
-torch, lockstep over rays: each must equal ``closest_hit_reference``
-(every primitive tested) bit for bit on every ray set, and does not
-without the widening.  The kernels themselves are held against the plain
-version on the card (test_torch_cuda.py, chip_smoke.py).
+The "cull" kernels slab-test every sub-cluster box for each ray (the
+bound +inf), bin the pairs (ray, entered sub-cluster) sub-cluster-major in
+ray order by a counting sort, test each bin's rays against its sub-
+cluster's rows, and fold each pair's (t, row) minimum into the ray's sphere
+or quad key by an integer minimum.  ``_bvh_mirror`` and ``_cull_mirror``
+below are those schedules in plain torch: each must equal
+``closest_hit_reference`` (every primitive tested) bit for bit on every ray
+set, and does not without the widening; ``_cull_bins`` is held against a
+brute-force listing of the pairs.  The kernels themselves are held against
+the plain version on the card (test_torch_cuda.py, chip_smoke.py).
 """
 
 import numpy as np
@@ -33,6 +37,9 @@ from mort_tpu_torch.render.primtable import build_prim_table
 from mort_tpu_torch.scene import scenes as sc
 
 _dot3 = ch._dot3
+# The "cull" kernels' schedule constants, mirrored from the .cu
+CULL_TILE = 256    # rays of a mask/place tile: kThreads
+CULL_CHUNK = 128   # listed rays of a test chunk: kCullThreads
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -64,6 +71,27 @@ def _spread_world(n):
         c = [i * 5.0 - n * 2.5, rng.randn() * 2, rng.randn() * 2]
         w.sphere(c, 0.4 + rng.rand(), m)
     return w
+
+
+def _near_miss_rays(data, meta, n, g, dist=3000.0):
+    """n rays from ``dist`` away that pass a random surface sphere (at its
+    centre at time 0.5) at 1.05 to 4 radii, in random directions: the
+    float32 test reports hits on some of them, outside the sphere's box."""
+    surf = np.nonzero(data.sph_surface[:meta.n_spheres].numpy())[0]
+    k = surf[g.randint(0, surf.size, n)]
+    c = (data.sph_center[k].double().numpy()
+         + data.sph_cvec[k].double().numpy() * 0.5)
+    r = np.abs(data.sph_radius[k].double().numpy())
+    d = g.randn(n, 3)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    e = g.randn(n, 3)
+    e -= (e * d).sum(1, keepdims=True) * d
+    e *= (r * g.uniform(1.05, 4.0, n) / np.linalg.norm(e, axis=1))[:, None]
+    rays = torch.zeros(8, n)
+    rays[0:3] = torch.from_numpy((c + e - dist * d).astype(np.float32)).T
+    rays[3:6] = torch.from_numpy(d.astype(np.float32)).T
+    rays[6] = 0.5
+    return rays
 
 
 def _camera_bounce(packed, cam, n, g):
@@ -232,41 +260,89 @@ def _bvh_mirror(packed, rays, sph_v, quad_v):
     return (*_merge(best, best_i, qt, qi, rcp_a), (n_s, n_q, n_b))
 
 
+def _cull_mask(packed, rays):
+    """The "cull" mask kernel's entries [R, n_sub] bool: box_enters against
+    every box of ``cull_boxes`` with the bound +inf."""
+    box = packed.accel_tab
+    ir, o_lo, o_hi = _slab_terms(rays, box[0, 6])
+    enter, _ = _enters(box[None, :, 0:3], box[None, :, 3:6], ir[:, None],
+                       o_lo[:, None], o_hi[:, None], INF)
+    return enter
+
+
+def _cull_bins(enter):
+    """The bins of the "cull" scan, bins and place kernels from the mask
+    [R, n_sub]: each tile of CULL_TILE rays counts each sub-cluster's rays,
+    the tiles' counts are scanned per sub-cluster, the bins' lengths over
+    the sub-clusters, and a ray's slot is its bin's first slot plus its
+    tile's plus its rank among the tile's rays that enter (the warps'
+    counts before it plus its lane's ballot prefix: the tile's exclusive
+    prefix in ray order).  Returns (bin_off [n_sub + 1], bins [pairs] ray
+    indices, chunk_off [n_sub + 1] in chunks of CULL_CHUNK slots)."""
+    R, n_sub = enter.shape
+    T = CULL_TILE
+    n_tiles = -(-R // T)
+    e = torch.zeros(n_tiles * T, n_sub, dtype=torch.long)
+    e[:R] = enter.long()
+    e = e.reshape(n_tiles, T, n_sub)
+    count = e.sum(dim=1)
+    tile_first = torch.cumsum(count, 0) - count
+    total = count.sum(dim=0)
+    bin_off = torch.cat([total.new_zeros(1), torch.cumsum(total, 0)])
+    rank = torch.cumsum(e, dim=1) - e
+    slot = bin_off[:-1] + tile_first[:, None] + rank
+    bins = torch.full((int(bin_off[-1]),), -1, dtype=torch.long)
+    ray = torch.arange(n_tiles * T).reshape(n_tiles, T, 1).expand_as(e)
+    on = e.bool()
+    bins[slot[on]] = ray[on]
+    chunks = -(-total // CULL_CHUNK)
+    chunk_off = torch.cat([chunks.new_zeros(1), torch.cumsum(chunks, 0)])
+    return bin_off, bins, chunk_off
+
+
+def _key(t, row):
+    """The kernel's key of a candidate: (t bits << 32) | row, int64."""
+    bits = t.contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    return bits << 32 | row
+
+
 def _cull_mirror(packed, rays, sph_v, quad_v):
-    """The "cull" kernel's schedule over the per-(ray, row) values of
-    ``_row_values``: returns (t, kind, idx, counts), counts = (sphere tests,
-    quad tests, 0)."""
+    """The "cull" kernels' schedule over the per-(ray, row) values of
+    ``_row_values``: the mask (bound +inf), the bins, each listed ray's
+    lexicographic (t, row) minimum over its bin's sub-cluster rows, folded
+    into its sphere or quad key by the minimum of the keys, and emit's
+    merge.  Returns (t, kind, idx, counts), counts = (sphere tests, quad
+    tests, box slab tests)."""
     R = rays.shape[1]
-    box, n_ss = packed.accel_tab, packed.n_sph_sub
+    n_ss, n_sub = packed.n_sph_sub, packed.n_accel
     d = rays[3:6].T
     rcp_a = 1.0 / _dot3(*d.T, *d.T)
-    ir, o_lo, o_hi = _slab_terms(rays, box[0, 6])
-    best = torch.full((R,), INF)
-    qt = torch.full((R,), INF)
-    best_i = torch.zeros(R, dtype=torch.long)
-    qi = torch.zeros(R, dtype=torch.long)
+    bin_off, bins, _ = _cull_bins(_cull_mask(packed, rays))
+    miss = _key(torch.tensor([INF]), 0)
+    keys = {True: miss.expand(R).clone(), False: miss.expand(R).clone()}
     n_s = n_q = 0
-    for s in range(packed.n_accel):
-        bound = torch.minimum(best * rcp_a, qt)
-        enter, _ = _enters(box[s, 0:3], box[s, 3:6], ir, o_lo, o_hi, bound)
+    for s in range(n_sub):
+        lanes = bins[bin_off[s]:bin_off[s + 1]]
         sphere = s < n_ss
         q = s if sphere else s - n_ss
         tab, vals = (packed.sph, sph_v) if sphere else (packed.quad, quad_v)
         rows = slice(q * ch.CL, min((q + 1) * ch.CL, vals.shape[1]))
-        if rows.start >= rows.stop:
+        if rows.start >= rows.stop or lanes.numel() == 0:
             continue
-        v, j = first_min(vals[:, rows])
-        n_test = int(enter.sum()) * int((tab[rows, -1] != 0).sum())
+        v, j = first_min(vals[lanes, rows])
+        n_test = lanes.numel() * int((tab[rows, -1] != 0).sum())
         if sphere:
             n_s += n_test
-            nb, ni = _lex_update(best, best_i, v, j + rows.start)
-            best, best_i = torch.where(enter, nb, best), torch.where(
-                enter, ni, best_i)
         else:
             n_q += n_test
-            nt, ni = _lex_update(qt, qi, v, j + rows.start)
-            qt, qi = torch.where(enter, nt, qt), torch.where(enter, ni, qi)
-    return (*_merge(best, best_i, qt, qi, rcp_a), (n_s, n_q, 0))
+        hit = v < INF
+        keys[sphere].scatter_reduce_(0, lanes[hit],
+                                     _key(v[hit], j[hit] + rows.start),
+                                     "amin")
+    (best, best_i), (qt, qi) = (
+        ((keys[k] >> 32).int().view(torch.float32), keys[k] & 0xFFFFFFFF)
+        for k in (True, False))
+    return (*_merge(best, best_i, qt, qi, rcp_a), (n_s, n_q, R * n_sub))
 
 
 MIRRORS = {"bvh": _bvh_mirror, "cull": _cull_mirror}
@@ -414,6 +490,7 @@ def _pack_like(scene, accel):
 def scenes():
     """name -> (data, meta, packed "bvh" on the CPU, camera), built once."""
     worlds = {"spread600": (_spread_world(600), None),
+              "one_sphere": (SMALL_WORLDS["one_sphere"](), None),
               "scene1": sc.random_spheres(),
               "scene9": sc.final_scene(400, 250, 4),
               "spread16k": sc.spread_spheres()}
@@ -424,7 +501,7 @@ def _rays(scenes, case, n):
     """(scene name, [8, n] rays) of a ray set."""
     name, kind = case.split("/")
     data, meta, packed, cam = scenes[name]
-    g = np.random.RandomState(CASES.index(case))
+    g = np.random.RandomState((CASES + CULL_CASES).index(case))
     if kind == "random":
         ro, rd = g.randn(2, n, 3).astype(np.float32) * [[[30.0]], [[1.0]]]
         rays = torch.zeros(8, n)
@@ -437,6 +514,8 @@ def _rays(scenes, case, n):
     if kind == "silhouettes":
         return name, silhouette_rays(data, meta, cam.lookfrom, n,
                                      CASES.index(case))
+    if kind == "near_misses":
+        return name, _near_miss_rays(data, meta, n, g)
     origins, tiny = {"edges": (("camera", "far", "face", "inside"), 0.15),
                      "edges_from_far": (("far",), 0.0),
                      "tiny_components": (("camera", "far", "face",
@@ -449,10 +528,12 @@ CASES = ("spread600/random", "scene9/camera_bounce", "scene1/camera_bounce",
          "scene1/silhouettes", "spread16k/silhouettes", "scene9/silhouettes",
          "scene9/edges", "scene9/edges_from_far", "scene9/tiny_components")
 # the "cull" mirror's cases: the ray sets that reach its sub-clusters'
-# boundaries (its boxes hold 128 rows each, so camera rays enter most)
+# boundaries (its boxes hold 128 rows each, so camera rays enter most), and
+# near misses of a lone small sphere from far away, which its box alone
+# holds
 CULL_CASES = ("scene1/silhouettes", "spread16k/silhouettes",
               "scene9/silhouettes", "scene9/edges_from_far",
-              "scene9/tiny_components")
+              "scene9/tiny_components", "one_sphere/near_misses")
 
 
 _PLAIN = {}
@@ -498,12 +579,14 @@ def test_schedule_equals_plain(scenes, mode, case):
 @pytest.mark.parametrize("mode,case", [("bvh", "scene1/silhouettes"),
                                        ("bvh", "spread16k/silhouettes"),
                                        ("bvh", "scene9/silhouettes"),
-                                       ("cull", "scene1/silhouettes")])
+                                       ("cull", "one_sphere/near_misses")])
 def test_schedule_needs_the_slack(scenes, mode, case, monkeypatch):
     """Without the widening (AAB_SLACK and SPHERE_ERR 0, in the boxes and
     per ray) the schedule prunes winners the plain version reports: the
     expanded sphere quadratic's hits near silhouettes, outside the
-    sphere's box."""
+    sphere's box.  "cull" slab-tests with no running bound, so it loses
+    such a hit only where the ray misses the whole sub-cluster box: a lone
+    small sphere's, passed at 1.05-4 radii from 3000 units."""
     monkeypatch.setattr(ch, "AAB_SLACK", 0.0)
     monkeypatch.setattr(ch, "SPHERE_ERR", 0.0)
     name = case.split("/")[0]
@@ -513,6 +596,53 @@ def test_schedule_needs_the_slack(scenes, mode, case, monkeypatch):
     n = 256 if name == "spread16k" else 1024
     _, _, same, _ = _mirror_vs_plain(bare, mode, case, n)
     assert not bool(same.all())
+
+
+@pytest.mark.parametrize("case", CULL_CASES + ("scene9/camera_bounce",))
+def test_cull_bins_list_every_pair_once(scenes, case):
+    """The "cull" bins hold every entered (ray, sub-cluster) pair exactly
+    once, sub-cluster by sub-cluster and in ray order within a bin, as a
+    brute-force listing of the mask does, at a ray count off the tile; and
+    the test kernel's chunks (the last sub-cluster whose first chunk is at
+    most g, then CULL_CHUNK slots from its first) cover the slots once."""
+    name = case.split("/")[0]
+    packed = _pack_like(scenes[name], "cull")
+    _, rays = _rays(scenes, case, 1024)
+    rays = rays[:, :rays.shape[1] - 3]
+    enter = _cull_mask(packed, rays)
+    bin_off, bins, chunk_off = _cull_bins(enter)
+    e = enter.numpy()
+    want = np.concatenate([np.nonzero(e[:, s])[0]
+                           for s in range(e.shape[1])])
+    assert want.size > 0 and bins.numpy().tolist() == want.tolist()
+    assert bin_off.numpy().tolist() == [0] + np.cumsum(e.sum(0)).tolist()
+    covered = np.zeros(want.size, dtype=np.int64)
+    offs = chunk_off.numpy()
+    for g in range(int(offs[-1])):
+        s = int(np.searchsorted(offs, g, side="right")) - 1
+        first = int(bin_off[s]) + (g - int(offs[s])) * CULL_CHUNK
+        n = min(CULL_CHUNK, int(bin_off[s + 1]) - first)
+        assert n > 0
+        covered[first:first + n] += 1
+    assert (covered == 1).all()
+
+
+@pytest.mark.parametrize("R, n_sub", [(1, 1), (1000, 28), (1 << 18, 128),
+                                      (1 << 18, 782), (37, 1 << 26)])
+def test_cull_slices_cover_the_rays(R, n_sub):
+    """The "cull" wrapper's launches cover the rays once, in order, each
+    within CULL_MAX_PAIRS bin slots (one ray a launch where one ray's
+    sub-clusters exceed it): spread16k at its main path's R is one launch,
+    100k primitives at the same R no longer exceed the bins' int32 slots."""
+    slices = ch.cull_slices(R, n_sub)
+    assert slices[0][0] == 0 and slices[-1][1] == R
+    assert all(a < b for a, b in slices)
+    assert all(b == a2 for (_, b), (a2, _) in zip(slices, slices[1:]))
+    assert all((b - a) * n_sub <= max(ch.CULL_MAX_PAIRS, n_sub)
+               for a, b in slices)
+    assert all((b - a) * n_sub < 2 ** 31 for a, b in slices)
+    if R * n_sub <= ch.CULL_MAX_PAIRS:
+        assert slices == [(0, R)]
 
 
 @pytest.mark.parametrize("name", ["scene1", "spread16k", "scene9"])

@@ -170,7 +170,7 @@ def test_none_box_cull_equals_plain_on_edge_rays(box_world, n):
     torch.cuda.synchronize()
     assert ch.launch_count["none"] == before + 2
     assert torch.equal(got, want) and torch.equal(counted, want)
-    n_s, n_q, n_b, n_a = counts.tolist()
+    n_s, n_q, n_b, n_a, n_p = counts.tolist()
     surf_q = int((packed.quad[:packed.n_quad, 12] != 0).sum())
     assert n_s == n * packed.n_sph and n_b == n * 36
     # the lamp, the one quad outside the boxes, takes the axis-aligned path
@@ -221,7 +221,7 @@ def test_bvh_equals_plain(bvh_sets, case, n):
     its counted launch too, and the tree prunes: a ray tests a few rows."""
     packed, rays = bvh_sets[case]
     packed = packed["bvh"]
-    n_s, n_q, n_b, n_a = _counted_equals_plain(packed,
+    n_s, n_q, n_b, n_a, n_p = _counted_equals_plain(packed,
                                                rays[:, :n].contiguous())
     assert n_b > 0 and n_b % 2 == 0 and n_a == 0
     assert n_s + n_q < 0.05 * n * (packed.n_sph + packed.n_quad)
@@ -229,12 +229,166 @@ def test_bvh_equals_plain(bvh_sets, case, n):
 
 @pytest.mark.parametrize("n", [255, 1 << 16])
 def test_cull_equals_plain_on_silhouettes(bvh_sets, n):
-    """The "cull" kernel, whose boxes are widened as "bvh"'s are, bit-equal
-    to the plain version on the rays grazing scene 1's silhouettes."""
+    """The "cull" kernels, whose boxes are widened as "bvh"'s are, bit-equal
+    to the plain version on the rays grazing scene 1's silhouettes; each
+    ray slab-tests every box once."""
     packed, rays = bvh_sets["silhouettes"]
-    n_s, n_q, n_b, n_a = _counted_equals_plain(packed["cull"],
+    packed = packed["cull"]
+    n_s, n_q, n_b, n_a, n_p = _counted_equals_plain(packed,
                                                rays[:, :n].contiguous())
-    assert 0 < n_s < n * packed["cull"].n_sph and n_q == n_b == n_a == 0
+    assert 0 < n_s < n * packed.n_sph and n_q == n_a == 0
+    assert n_b == n * packed.n_accel
+
+
+@pytest.fixture(scope="module")
+def cull_scene9():
+    """Scene 9 packed "cull" on the card and 2^16 + 1 of its camera and
+    bounce rays (a ragged count)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "False)")
+    dev = require_cuda()
+    world, cam = sc.final_scene(400, 250, 4)
+    packed = _packed(world, dev, "cull")
+    rays = ch.stack_rays(*_camera_rays((world, cam), 1 << 15, dev))
+    t = ch.closest_hit_reference(packed, rays)[ch.ROW_T]
+    g = np.random.RandomState(9)
+    bounce = torch.cat([rays[0:3] + rays[3:6] * t, torch.from_numpy(
+        g.randn(3, rays.shape[1]).astype(np.float32)).to(dev), rays[6:]])
+    rays = torch.cat([rays, bounce[:, torch.isfinite(t)]], 1)
+    return packed, rays[:, :(1 << 16) + 1].contiguous()
+
+
+@pytest.mark.parametrize("n", [1, 31, 255, 257, 1000, (1 << 16) + 1,
+                               (1 << 18) + (1 << 16) + 3])
+def test_cull_three_launches_bit_identical(cull_scene9, n):
+    """Three launches of the "cull" kernels on scene 9's rays give the same
+    bits, the plain version's, at counts off the warp and the block (the
+    last, over 1024 tiles, scans each bin's tiles in two rounds): the keys'
+    integer minimum does not depend on the order of the atomics."""
+    packed, rays = cull_scene9
+    rays = rays.repeat(1, -(-n // rays.shape[1]))[:, :n].contiguous()
+    want = ch.closest_hit_reference(packed, rays)
+    before = ch.launch_count["cull"]
+    runs = [ch._launch(packed, rays, ch.T_MIN) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert ch.launch_count["cull"] == before + 3
+    for got in runs:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n, rays_a_launch", [(37, 1), (4099, 1000)])
+def test_cull_split_launches_equal_one(cull_scene9, monkeypatch, n,
+                                       rays_a_launch):
+    """A ray set split over several "cull" launches (CULL_MAX_PAIRS cut to
+    ``rays_a_launch`` rays of scene 9's sub-clusters) gives the plain
+    version's bits and the tests and pairs of one launch, one launch count
+    a slice."""
+    packed, rays = cull_scene9
+    rays = rays[:, :n].contiguous()
+    want = ch.closest_hit_reference(packed, rays)
+    one = torch.zeros(ch.N_TESTS, dtype=torch.int64, device=rays.device)
+    assert torch.equal(ch._launch(packed, rays, ch.T_MIN, one), want)
+    monkeypatch.setattr(ch, "CULL_MAX_PAIRS", rays_a_launch * packed.n_accel)
+    slices = ch.cull_slices(n, packed.n_accel)
+    assert len(slices) == -(-n // rays_a_launch)
+    split = torch.zeros_like(one)
+    before = ch.launch_count["cull"]
+    got = ch._launch(packed, rays, ch.T_MIN, split)
+    torch.cuda.synchronize()
+    assert ch.launch_count["cull"] == before + len(slices)
+    assert torch.equal(got, want)
+    assert torch.equal(split, one)
+
+
+def _row_world(n=512):
+    """n spheres on the x axis, 5 apart: the builder's Morton order is x's,
+    so the four sub-clusters' boxes lie side by side."""
+    g = np.random.RandomState(5)
+    w = World()
+    m = w.lambertian(w.solid_color([0.5, 0.5, 0.5]))
+    for i in range(n):
+        w.sphere([i * 5.0 - n * 2.5, 0.0, 0.0], 0.5 + g.rand(), m)
+    return w
+
+
+def _one_box_rays(packed, n, dev, k=1, seed=0):
+    """n rays straight down (-y) onto the xz rectangle of cull box k, at
+    least 3 units away from every other box's (more than a ray's own
+    widening, make_slab): each enters box k alone."""
+    box = packed.accel_tab.cpu().double()
+    real = box[:, 0] <= box[:, 3]
+    lo, hi = box[k, [0, 2]] + 1.0, box[k, [3, 5]] - 1.0
+    g = np.random.RandomState(seed)
+    xz = torch.from_numpy(g.uniform(lo.numpy(), hi.numpy(), (4 * n, 2)))
+    alone = torch.ones(4 * n, dtype=torch.bool)
+    for j in range(box.shape[0]):
+        if j != k and real[j]:
+            alone &= ~((xz >= box[j, [0, 2]] - 3.0)
+                       & (xz <= box[j, [3, 5]] + 3.0)).all(dim=1)
+    xz = xz[alone][:n]
+    assert xz.shape[0] == n
+    rays = torch.zeros(8, n)
+    rays[0], rays[2] = xz[:, 0].float(), xz[:, 1].float()
+    rays[1] = float(box[k, 4]) + 50.0
+    rays[4] = -1.0
+    rays[6] = torch.from_numpy(g.rand(n).astype(np.float32))
+    return rays.to(dev)
+
+
+def test_cull_every_ray_one_sub_cluster(dev):
+    """Every ray enters one sub-cluster, the same: one bin of 2^16 rays in
+    512 chunks.  Bit-equal to the plain version, and each ray tests that
+    sub-cluster's 128 spheres and no other."""
+    packed = _packed(_row_world(), dev, "cull")
+    n = 1 << 16
+    rays = _one_box_rays(packed, n, dev)
+    n_s, n_q, n_b, n_a, n_p = _counted_equals_plain(packed, rays)
+    assert n_s == n * ch.CL and n_q == n_a == 0
+    assert n_b == n * packed.n_accel
+
+
+def test_cull_no_ray_enters(dev):
+    """Rays that enter no box (empty bins): every ray misses, bit-equal to
+    the plain version, and no sphere or quad is tested."""
+    world, _ = sc.final_scene(400, 250, 4)
+    packed = _packed(world, dev, "cull")
+    n = 4099
+    g = np.random.RandomState(2)
+    d = g.randn(n, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rays = torch.zeros(8, n)
+    rays[0:3] = torch.from_numpy(d.T * 1e5)
+    rays[3:6] = torch.from_numpy(d.T)
+    rays = rays.to(dev)
+    n_s, n_q, n_b, n_a, n_p = _counted_equals_plain(packed, rays)
+    assert n_s == n_q == n_a == 0 and n_b == n * packed.n_accel
+    out = ch.closest_hit_reference(packed, rays)
+    assert not bool((out[ch.ROW_KIND] > 0).any())
+
+
+def test_cull_replays_from_a_cuda_graph(cull_scene9):
+    """The "cull" call captured in a CUDA graph (no host sync in it: its
+    scratch is sized from R and n_sub, its test grid from the card) and
+    replayed on new rays equals an eager call on them."""
+    packed, rays = cull_scene9
+    n = 1 << 14
+    static = rays[:, :n].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ch._launch(packed, static, ch.T_MIN)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ch._launch(packed, static, ch.T_MIN)
+    for lo in (n, 2 * n):
+        static.copy_(rays[:, lo:lo + n])
+        graph.replay()
+        torch.cuda.synchronize()
+        want = ch._launch(packed, static.clone(), ch.T_MIN)
+        assert torch.equal(out, want)
+        assert torch.equal(out, ch.closest_hit_reference(packed, static))
 
 
 @pytest.fixture(scope="module")
@@ -277,7 +431,7 @@ def test_none_aaq_equals_plain(aaq_sets, case, n):
     quad test is an axis-aligned one."""
     packed, rays = aaq_sets[case]
     n = min(n, rays.shape[1])
-    n_s, n_q, n_b, n_a = _counted_equals_plain(packed,
+    n_s, n_q, n_b, n_a, n_p = _counted_equals_plain(packed,
                                                rays[:, :n].contiguous())
     n_aaq = packed.aaq_tab.shape[0]
     assert n_a == n * n_aaq and n_b == 0
