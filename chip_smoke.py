@@ -85,20 +85,41 @@ Phases, one line each or more (any failure raises and exits non-zero):
    config through the auto accel ("none"), in the order none, cull, cull,
    none, the four images bit-equal; half the frame's tasks (every pixel
    once) rendered once more under ``torch.profiler`` for the "cull"
-   kernels' share of device time.
+   kernels' share of device time;
+17. the sharded paths (``parallel/sharding.py``): (a) on a 1-rank NCCL
+   group, main path ``render_wavefront(mesh=make_mesh(1))`` on scene 1 at
+   its bench config, launch counts reset just before and read just after,
+   its wall beside phase 5's; main path ``make_train_step(meta,
+   make_mesh(1))`` at phase 10's config, against ``mesh=None`` by phase
+   10's rule, with its all-reduce count; (b) the script starts itself twice
+   (``--rank r --world 2``) as gloo ranks sharing the one card: the
+   wavefront (scene 1 at 300x169, 16 spp, depth 20; spread16k at 160x90
+   through "bvh") bit-equal to one rank, ``render_sharded`` by the image
+   rule, the train step's grads within rtol 5e-3, a scene-6 progressive
+   render checkpointed on two ranks resumed on one bit-identical to an
+   uninterrupted one, every rank's launches above 0, and the 1-rank mesh
+   bit-equal to the render without a mesh over the same layer-aligned
+   spans at that scene-1 config (at full size it would cost phase 5's
+   wall again); a worker that fails or outlives its timeout fails the run;
+   (c) the host BVH builder: g++ builds it and it equals the numpy builder
+   bit for bit.
 
 Files go to build/chip_smoke/ (git-ignored).  The last lines are a JSON
-record of the numerics (``{"precision": ...}``: TF32 off, each kernel's
-largest error, rows bit-equal on hit lanes), a JSON record of the kernels
-(launches on the paths above, the largest error against the plain version,
-kernel ms — one call between two events, and back to back — plain and
-bound ms), the nvidia-smi name/power line, and a JSON object with ``ok``
-and the device.  Imports neither jax nor the JAX package.
+record of phase 17 (``{"sharding": ...}``: walls, launches, collectives,
+bit-equal flags), a JSON record of the numerics (``{"precision": ...}``:
+TF32 off, each kernel's largest error, rows bit-equal on hit lanes), a
+JSON record of the kernels (launches on the paths above, the largest error
+against the plain version, kernel ms — one call between two events, and
+back to back — plain and bound ms), the nvidia-smi name/power line, and a
+JSON object with ``ok`` and the device.  Imports neither jax nor the JAX
+package.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import datetime
 import io
 import json
 import os
@@ -116,7 +137,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from mort_tpu_torch import (  # noqa: E402
-    make_train_step, render, render_wavefront, require_cuda,
+    make_mesh, make_train_step, render, render_sharded, render_wavefront,
+    require_cuda,
 )
 from mort_tpu_torch import _build, rng  # noqa: E402
 from mort_tpu_torch.device import card_line  # noqa: E402
@@ -1110,7 +1132,8 @@ def step_grads_ok(loss, grads, need=()):
 
 
 def train_step_main_path(dev, card):
-    """Phase 10: the scene-1 train step at bench.py --grad's config."""
+    """Phase 10: the scene-1 train step at bench.py --grad's config;
+    returns the launch counts and the median step wall."""
     world, cam = sc.random_spheres()
     data, meta = world.compile()
     cam = cam.replace(image_width=GRAD_W, image_height=GRAD_H, sqrt_spp=2,
@@ -1144,7 +1167,7 @@ def train_step_main_path(dev, card):
         f"launches per step none {counts['none'] // steps_per_run} bwd "
         f"{counts['bwd'] // steps_per_run} ({steps_per_run} steps), peak "
         f"memory {peak / 2 ** 30:.3f} GiB | {card}")
-    return counts
+    return counts, wall
 
 
 def lockstep_render(dev):
@@ -1474,6 +1497,430 @@ def viewer_path(dev):
         f"{counts['none']}; {buf.getvalue().strip().splitlines()[-1]}")
 
 
+# Phase 17's configs.  Scene 1 cut to 300x169, 16 spp (depth 20, its own)
+# and the train step to 300x169 (4 spp, depth 8) for two ranks sharing the
+# one card; spread16k at phase 8's 160x90, 4 spp, depth 4 (its "bvh" path);
+# scene 6 at 200x200, 9 spp, spt 3 (three layers), depth 50 (its own).
+SHARD_W, SHARD_H, SHARD_SQRT_SPP = 300, 169, 4
+SHARD_PROG_W, SHARD_PROG_SQRT_SPP, SHARD_PROG_SPT = 200, 3, 3
+SHARD_WORLD = 2
+WORKER_TIMEOUT_S = 420      # a worker's own limit: start, build, run, write
+BVH_SIZES = (1, 2, 3, 7, 64, 499)
+
+
+class _Interrupted(BaseException):
+    pass
+
+
+def shard_configs():
+    """The scenes and cameras of phase 17 (b), the same on every rank."""
+    w1, c1 = sc.random_spheres()
+    d1, m1 = w1.compile()
+    w16, c16 = sc.spread_spheres()
+    d16, m16 = w16.compile()
+    w6, c6 = sc.build_scene(6)
+    d6, m6 = w6.compile()
+    return {
+        "scene1": (d1, m1, c1.replace(image_width=SHARD_W,
+                                      image_height=SHARD_H,
+                                      sqrt_spp=SHARD_SQRT_SPP)),
+        "spread16k": (d16, m16, c16.replace(image_width=160, image_height=90,
+                                            sqrt_spp=2, bounce_limit=4)),
+        "grad": (d1, m1, c1.replace(image_width=SHARD_W,
+                                    image_height=SHARD_H, sqrt_spp=2,
+                                    bounce_limit=8)),
+        "scene6": (d6, m6, c6.replace(image_width=SHARD_PROG_W,
+                                      image_height=SHARD_PROG_W,
+                                      sqrt_spp=SHARD_PROG_SQRT_SPP)),
+    }
+
+
+def sharded_runs(mesh, ckpt, resume):
+    """Every sharded entry point on ``mesh`` at phase 17 (b)'s configs, the
+    launch counts of each reset just before and read just after; returns
+    numpy results.  ``resume`` False interrupts the progressive scene-6
+    render after its first step, checkpointing to ``ckpt`` (rank 0 writes);
+    True renders it uninterrupted and resumes it from ``ckpt``."""
+    from mort_tpu_torch.render.progressive import (
+        load_state, render_progressive_wavefront,
+    )
+
+    cfg = shard_configs()
+    out = {}
+    for name, mode in (("scene1", "none"), ("spread16k", "bvh")):
+        data, meta, cam = cfg[name]
+        reset_counts()
+        t0 = time.perf_counter()
+        img, stats = render_wavefront(data, meta, cam, seed=SEED, mesh=mesh,
+                                      return_stats=True)
+        out[f"wf_{name}_s"] = time.perf_counter() - t0
+        out[f"wf_{name}"] = img.cpu().numpy()
+        out[f"wf_{name}_launches"] = read_counts()[mode]
+        out[f"wf_{name}_useful"] = np.asarray(stats["per_shard_useful"])
+        out[f"wf_{name}_collectives"] = sum(stats["collectives"].values())
+        out[f"wf_{name}_span_collectives"] = stats["collectives"]["spans"]
+    data, meta, cam = cfg["scene1"]
+    reset_counts()
+    out["sharded"] = render_sharded(data, meta, cam, mesh, seed=SEED)
+    out["sharded_launches"] = read_counts()["none"]
+    data, meta, cam = cfg["grad"]
+    step = make_train_step(meta, mesh)
+    target = np.zeros((cam.image_height, cam.image_width, 3), np.float32)
+    reset_counts()
+    loss, grads = step(data, cam, target, SEED)
+    counts = read_counts()
+    out["step_launches"] = counts["none"]
+    out["step_bwd_launches"] = counts["bwd"]
+    out["step_all_reduce"] = step.collectives["all_reduce"]
+    out["loss"] = loss.cpu().numpy()
+    out.update({f"grad_{k}": g.cpu().numpy() for k, g in grads.items()})
+    data, meta, cam = cfg["scene6"]
+    kw = dict(seed=SEED, spt=SHARD_PROG_SPT, mesh=mesh)
+    reset_counts()
+    if resume:
+        out["prog_full"] = render_progressive_wavefront(data, meta, cam,
+                                                        **kw).fb
+        state = load_state(ckpt)
+        assert state.samples_done == SHARD_PROG_SPT, state.samples_done
+        out["prog_resumed"] = render_progressive_wavefront(
+            data, meta, cam, state=state, **kw).fb
+    else:
+        def stop(state):
+            raise _Interrupted
+        try:
+            render_progressive_wavefront(data, meta, cam, checkpoint_path=ckpt,
+                                         on_step=stop, **kw)
+            raise AssertionError("progressive: no interruption")
+        except _Interrupted:
+            pass
+    out["prog_launches"] = read_counts()["none"]
+    return out
+
+
+def shard_worker(argv):
+    """One rank of phase 17 (b): ``chip_smoke.py --rank r --world n --store
+    FILE --out DIR --ckpt FILE`` on a gloo group whose ranks share the one
+    card (NCCL refuses two ranks on one GPU); writes DIR/shard_rank{r}.npz."""
+    p = argparse.ArgumentParser()
+    for flag in ("--rank", "--world"):
+        p.add_argument(flag, type=int, required=True)
+    for flag in ("--store", "--out", "--ckpt"):
+        p.add_argument(flag, required=True)
+    a = p.parse_args(argv)
+    import torch.distributed as dist
+
+    dev = require_cuda()
+    dist.init_process_group(
+        "gloo", init_method=f"file://{a.store}", rank=a.rank,
+        world_size=a.world,
+        timeout=datetime.timedelta(seconds=WORKER_TIMEOUT_S))
+    try:
+        mesh = make_mesh(a.world, devices=[dev] * a.world)
+        t0 = time.perf_counter()
+        out = sharded_runs(mesh, a.ckpt, resume=False)
+        out["seconds"] = time.perf_counter() - t0
+        np.savez(os.path.join(a.out, f"shard_rank{a.rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_shard_workers(d, ckpt):
+    """Start the SHARD_WORLD ranks of phase 17 (b) and wait for them; a
+    rank that fails or outlives WORKER_TIMEOUT_S fails the run.  Returns
+    each rank's results and the seconds they took together."""
+    tag = f"{os.getpid()}_{time.time_ns()}"
+    store = os.path.join(d, f"store_gloo_{tag}")
+    logs = [os.path.join(d, f"shard_rank{r}.log") for r in
+            range(SHARD_WORLD)]
+    for f in [ckpt] + [os.path.join(d, f"shard_rank{r}.npz")
+                       for r in range(SHARD_WORLD)]:
+        if os.path.exists(f):
+            os.unlink(f)
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for r in range(SHARD_WORLD):
+            with open(logs[r], "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--rank",
+                     str(r), "--world", str(SHARD_WORLD), "--store", store,
+                     "--out", d, "--ckpt", ckpt],
+                    cwd=os.path.dirname(os.path.abspath(__file__)),
+                    stdout=f, stderr=subprocess.STDOUT))
+        for p in procs:
+            p.wait(timeout=WORKER_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+    seconds = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(logs[r]) as f:
+                tail = f.read()[-4000:]
+            raise AssertionError(f"phase 17: worker rank {r} exited "
+                                 f"{p.returncode}:\n{tail}")
+    return [dict(np.load(os.path.join(d, f"shard_rank{r}.npz")))
+            for r in range(SHARD_WORLD)], seconds
+
+
+def bvh_leaves(n, seed):
+    """tests/test_native.py's leaves: n spheres and max(1, n // 3) quads."""
+    from mort_tpu_torch.scene.types import OBJ_QUAD, OBJ_SPHERE
+
+    g = np.random.RandomState(seed)
+    centers = (g.randn(n, 3) * 10).astype(np.float32)
+    radii = g.uniform(0.1, 2.0, n).astype(np.float32)
+    nq = max(1, n // 3)
+    qq = (g.randn(nq, 3) * 5).astype(np.float32)
+    qu = g.randn(nq, 3).astype(np.float32)
+    qv = g.randn(nq, 3).astype(np.float32)
+    leaves = ([(OBJ_SPHERE, i) for i in range(n)]
+              + [(OBJ_QUAD, i) for i in range(nq)])
+    return leaves, centers, radii, np.zeros((n, 3), np.float32), qq, qu, qv
+
+
+def host_bvh_builder():
+    """Phase 17 (c): the C++ BVH builder builds (g++) and equals the numpy
+    builder bit for bit on every array; returns the build seconds."""
+    from mort_tpu_torch import native
+    from mort_tpu_torch.scene.bvh import build_bvh_numpy, build_bvh_via_native
+
+    t0 = time.perf_counter()
+    assert native.have_native(), f"native BVH builder: {native.build_error()}"
+    build_s = time.perf_counter() - t0
+    for n in BVH_SIZES:
+        args = bvh_leaves(n, seed=n)
+        got = build_bvh_via_native(*args)
+        want = build_bvh_numpy(*args)
+        assert got is not None and len(got) == len(want) == 7, n
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and np.array_equal(g, w), n
+    return build_s
+
+
+def sharded_paths(dev, card, scene1_img, scene1_wall, step_wall):
+    """Phase 17: the sharded paths.  (a) on a 1-rank NCCL group, the main
+    paths at full width: ``render_wavefront(mesh=make_mesh(1))`` on scene 1
+    at its bench config beside phase 5, and the train step at bench.py
+    --grad's config against ``mesh=None``'s; (b) two gloo ranks on the one
+    card against the 1-rank mesh, and the 1-rank mesh bit-equal to the
+    render without a mesh over the same layer-aligned spans at (b)'s
+    scene-1 config; (c) the host BVH builder.  Returns the
+    ``{"sharding": ...}`` record."""
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    d = out_dir()
+    ckpt = os.path.join(d, "shard_scene6.npz")
+    store = os.path.join(d, f"store_nccl_{os.getpid()}_{time.time_ns()}")
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=600))
+    rec = {}
+    try:
+        mesh = make_mesh(1)
+        assert mesh.device == dev and mesh.groups == (None,), mesh
+        # ---- (a) scene 1 at its bench config through the 1-rank mesh ----
+        world1, cam1 = sc.random_spheres()
+        data1, meta1 = world1.compile()
+        spp = cam1.sqrt_spp ** 2
+        n_paths = cam1.image_width * cam1.image_height * spp
+        reset_counts()
+        t0 = time.perf_counter()
+        img, stats = render_wavefront(data1, meta1, cam1, seed=SEED,
+                                      mesh=mesh, return_stats=True)
+        torch.cuda.synchronize()
+        mesh_wall = time.perf_counter() - t0
+        counts = read_counts()
+        assert counts["none"] > 0, "1-rank mesh: the none kernel never ran"
+        assert bool(torch.isfinite(img).all()), "non-finite pixels"
+        frac, mdiff = assert_images_close(img.cpu().numpy(), scene1_img)
+        log(f"main path scene1 1-rank NCCL mesh {cam1.image_width}x"
+            f"{cam1.image_height} @ {spp}spp depth {cam1.bounce_limit}: wall "
+            f"{mesh_wall:.3f} s ({n_paths / mesh_wall:.1f} paths/s, "
+            f"{stats['iterations']} rounds in one layer-aligned span a "
+            f"layer) beside phase 5's {scene1_wall:.3f} s; none launches "
+            f"{counts['none']}; collectives {stats['collectives']}; against "
+            f"phase 5's image frac_within={frac:.5f}, mean_abs={mdiff:.3e} "
+            f"| {card}")
+        assert stats["collectives"] == {"spans": 0, "gather": 1, "stats": 1}
+        rec.update(scene1_wall_s=scene1_wall, scene1_mesh1_wall_s=mesh_wall,
+                   scene1_mesh1_launches=counts["none"],
+                   scene1_mesh1_collectives=stats["collectives"])
+        del img
+
+        # ---- (a) the train step at bench.py --grad's config ----
+        gcam = cam1.replace(image_width=GRAD_W, image_height=GRAD_H,
+                            sqrt_spp=2, bounce_limit=8)
+        target = np.zeros((GRAD_H, GRAD_W, 3), np.float32)
+        steps = {"mesh": make_train_step(meta1, mesh),
+                 "none": make_train_step(meta1)}
+        walls = {"mesh": [], "none": []}
+        counts = dict.fromkeys(ch.launch_count, 0)
+
+        def run(kind, seed):
+            # the mesh step's launches are counted from just before to just
+            # after each of its calls; the mesh=None steps are not counted
+            reset_counts()
+            t0 = time.perf_counter()
+            loss, grads = steps[kind](data1, gcam, target, seed)
+            float(loss)
+            torch.cuda.synchronize()
+            walls[kind].append(time.perf_counter() - t0)
+            if kind == "mesh":
+                for mode, n in read_counts().items():
+                    counts[mode] += n
+            return loss, grads
+
+        for kind in ("mesh", "none"):       # warm-up: the operands' upload
+            run(kind, GRAD_SEEDS[0])
+            walls[kind].clear()
+        # the two steps in turns, each first in every other pair: the
+        # order of the runs cancels from the comparison
+        for i, seed in enumerate(GRAD_SEEDS[1:]):
+            for kind in (("none", "mesh") if i % 2 == 0
+                         else ("mesh", "none")):
+                res = run(kind, seed)
+                if kind == "mesh":
+                    loss, grads = res
+                else:
+                    w_loss, w_grads = res
+        per_step = gcam.sqrt_spp ** 2 * gcam.bounce_limit
+        assert counts["none"] == counts["bwd"] == len(GRAD_SEEDS) * per_step
+        coll = steps["mesh"].collectives["all_reduce"]
+        assert coll == 1, steps["mesh"].collectives
+        step_grads_ok(loss, grads, ("sph_center", "mat_albedo", "tex_color"))
+        torch.testing.assert_close(loss, w_loss, rtol=1e-4, atol=0.0)
+        scale = max(float(g.abs().max()) for g in w_grads.values())
+        for k, g in grads.items():
+            torch.testing.assert_close(g, w_grads[k], rtol=1e-3,
+                                       atol=1e-5 * scale,
+                                       msg=lambda m, k=k: f"{k}: {m}")
+        step_equal = bool(torch.equal(loss, w_loss)) and all(
+            torch.equal(g, w_grads[k]) for k, g in grads.items())
+        wall = statistics.median(walls["mesh"])
+        none_wall = statistics.median(walls["none"])
+        g_paths = GRAD_W * GRAD_H * gcam.sqrt_spp ** 2
+        log(f"main path train step scene1 1-rank NCCL mesh {GRAD_W}x{GRAD_H}"
+            f" @ 4spp depth 8: median wall {wall:.3f} s ("
+            f"{', '.join(f'{w:.3f}' for w in walls['mesh'])}) against "
+            f"mesh=None {none_wall:.3f} s ("
+            f"{', '.join(f'{w:.3f}' for w in walls['none'])}) in turns "
+            f"(phase 10: {step_wall:.3f} s), {g_paths / wall:.1f} grad "
+            f"paths/s, launches per step none "
+            f"{counts['none'] // len(GRAD_SEEDS)} bwd "
+            f"{counts['bwd'] // len(GRAD_SEEDS)}, all-reduces a step {coll} "
+            f"(one flat bucket: the loss and the ten gradients); loss and "
+            f"grads bit-equal to mesh=None {step_equal} | {card}")
+        rec.update(step_wall_s=step_wall, step_none_turns_wall_s=none_wall,
+                   step_mesh1_wall_s=wall,
+                   step_mesh1_grad_paths_per_s=g_paths / wall,
+                   step_mesh1_launches={"none": counts["none"],
+                                        "bwd": counts["bwd"]},
+                   step_mesh1_all_reduce=coll,
+                   step_mesh1_bit_equal=step_equal)
+        del grads, w_grads
+
+        # ---- (b) two gloo ranks on the one card against one rank ----
+        torch.cuda.empty_cache()
+        two, workers_s = run_shard_workers(d, ckpt)
+        t0 = time.perf_counter()
+        one = sharded_runs(mesh, ckpt, resume=True)
+        one_s = time.perf_counter() - t0
+        # the 1-rank mesh against the render without a mesh over the same
+        # spans, one a layer (spt = min(spp, 8): the default at depth 20);
+        # the full-size render would cost phase 5's wall again
+        data, meta, cam = shard_configs()["scene1"]
+        spp = cam.sqrt_spp ** 2
+        t0 = time.perf_counter()
+        ref = render_wavefront(data, meta, cam, dev, seed=SEED,
+                               layer_range=(0, -(-spp // min(spp, 8))))
+        torch.cuda.synchronize()
+        layers_wall = time.perf_counter() - t0
+        mesh1_equal = bool(np.array_equal(ref.cpu().numpy(),
+                                          one["wf_scene1"]))
+        log(f"scene1 {SHARD_W}x{SHARD_H} @ {spp}spp depth 20: 1-rank mesh "
+            f"{float(one['wf_scene1_s']):.3f} s, without a mesh over the "
+            f"same layer-aligned spans {layers_wall:.3f} s, bit-equal "
+            f"{mesh1_equal} | {card}")
+        assert mesh1_equal, "1-rank mesh render differs from the render " \
+            "without a mesh over the same spans"
+        rec.update(scene1_reduced_mesh1_wall_s=float(one["wf_scene1_s"]),
+                   scene1_reduced_layer_spans_wall_s=layers_wall,
+                   mesh1_bit_equal_layer_spans=mesh1_equal)
+        for r, res in enumerate(two):
+            for key in ("wf_scene1_launches", "wf_spread16k_launches",
+                        "sharded_launches", "step_launches",
+                        "step_bwd_launches", "prog_launches"):
+                assert res[key] > 0, f"rank {r}: {key} {res[key]}"
+            assert res["step_all_reduce"] == 1
+            assert res["wf_scene1_span_collectives"] == 0
+        wf_equal = {name: all(np.array_equal(res[f"wf_{name}"],
+                                             one[f"wf_{name}"])
+                              for res in two)
+                    for name in ("scene1", "spread16k")}
+        frac, mdiff = assert_images_close(two[0]["sharded"], one["sharded"])
+        sharded_equal = all(np.array_equal(res["sharded"], one["sharded"])
+                            for res in two)
+        np.testing.assert_allclose(two[0]["loss"], one["loss"], rtol=1e-4)
+        worst = 0.0
+        for k in [k for k in one if k.startswith("grad_")]:
+            np.testing.assert_allclose(two[0][k], one[k], rtol=5e-3,
+                                       atol=1e-5, err_msg=k)
+            assert np.array_equal(two[1][k], two[0][k]), k
+            worst = max(worst, float(np.abs(two[0][k] - one[k]).max()))
+        prog_equal = bool(np.array_equal(one["prog_resumed"],
+                                         one["prog_full"]))
+        useful = two[0]["wf_scene1_useful"]
+        log(f"sharded 2 gloo ranks on one card vs 1 rank: wavefront bit-equal"
+            f" scene1 {SHARD_W}x{SHARD_H} @ {SHARD_SQRT_SPP ** 2}spp depth 20 "
+            f"{wf_equal['scene1']}, spread16k 160x90 @ 4spp depth 4 (bvh) "
+            f"{wf_equal['spread16k']}; per-rank useful segments scene1 "
+            f"{useful.tolist()}; render_sharded frac_within={frac:.5f}, "
+            f"mean_abs={mdiff:.3e} (bit-equal {sharded_equal}); train step "
+            f"{SHARD_W}x{SHARD_H} loss {float(two[0]['loss']):.7f} vs "
+            f"{float(one['loss']):.7f}, grads max |diff| {worst:.3e}; "
+            f"scene 6 progressive {SHARD_PROG_W}x{SHARD_PROG_W} @ "
+            f"{SHARD_PROG_SQRT_SPP ** 2}spp spt {SHARD_PROG_SPT} "
+            f"checkpointed after one step on 2 ranks, resumed on 1: "
+            f"bit-equal {prog_equal}; launches per rank "
+            + "; ".join(f"rank {r}: none {res['wf_scene1_launches']}, bvh "
+                        f"{res['wf_spread16k_launches']}, render_sharded "
+                        f"{res['sharded_launches']}, step none "
+                        f"{res['step_launches']} bwd "
+                        f"{res['step_bwd_launches']}, progressive "
+                        f"{res['prog_launches']}"
+                        for r, res in enumerate(two))
+            + f"; workers {workers_s:.1f} s (rank 0's checks "
+            f"{float(two[0]['seconds']):.1f} s), 1-rank side {one_s:.1f} s")
+        assert all(wf_equal.values()), wf_equal
+        assert prog_equal, "phase 17: the resumed render differs"
+        rec.update(two_rank_wavefront_bit_equal=wf_equal,
+                   two_rank_render_sharded_bit_equal=sharded_equal,
+                   two_rank_grads_max_abs_diff=worst,
+                   two_rank_resume_bit_equal=prog_equal,
+                   two_rank_launches=[{
+                       k[:-len("_launches")]: int(res[k]) for k in res
+                       if k.endswith("_launches")} for res in two],
+                   two_rank_step_all_reduce=int(two[0]["step_all_reduce"]),
+                   two_rank_wavefront_collectives=int(
+                       two[0]["wf_scene1_collectives"]),
+                   two_rank_per_shard_useful=useful.tolist())
+    finally:
+        dist.destroy_process_group()
+
+    # ---- (c) the host BVH builder ----
+    build_s = host_bvh_builder()
+    log(f"host BVH builder: g++ build/load {build_s:.2f} s; native equals "
+        f"numpy bit for bit on all seven arrays for n in {BVH_SIZES}")
+    rec.update(bvh_native_equals_numpy=True, bvh_build_s=build_s,
+               seconds=time.perf_counter() - t_phase)
+    return rec
+
+
+
 def precision_record(kern, rows_hits):
     """The card counterpart of tools/mosaic_check.py: TF32 off for matmuls
     and cuDNN, float32 matmul precision "highest", every kernel's largest
@@ -1556,7 +2003,8 @@ def main():
 
     # ---- 5. main path: scene 1 at its bench config ----
     world1, cam1 = sc.random_spheres()
-    counts1 = main_path("scene1", world1, cam1, dev, card)[0]
+    counts1, img1, wall1 = main_path("scene1", world1, cam1, dev, card)
+    img1 = img1.cpu().numpy()
     data1, meta1 = world1.compile()
     small = cam1.replace(image_width=200, image_height=112, sqrt_spp=4)
     a, b, _ = render_pair(data1, meta1, small, dev)
@@ -1624,7 +2072,7 @@ def main():
     log(f"phase 9 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 10. main path: the scene-1 train step ----
-    counts10 = train_step_main_path(dev, card)
+    counts10, wall10 = train_step_main_path(dev, card)
     log(f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 11. the lockstep render on the card ----
@@ -1681,6 +2129,11 @@ def main():
     del runs, imgs
     log(f"phase 16 done at {time.perf_counter() - t_start:.1f} s")
 
+    # ---- 17. the sharded paths and the host BVH builder ----
+    sharding = sharded_paths(dev, card, img1, wall1, wall10)
+    log(f"phase 17 took {sharding['seconds']:.1f} s, done at "
+        f"{time.perf_counter() - t_start:.1f} s")
+
     launches = {"none": counts9["none"], "bvh": counts16m["bvh"],
                 "cull": counts9c["cull"], "bwd": counts10["bwd"],
                 "aaq": counts13["none"]}
@@ -1695,6 +2148,7 @@ def main():
         f"{launches['aaq']} (the cli render 5 main path; progressive scene "
         f"6 {counts14['none']})")
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"sharding": sharding}))
     rows_hits = kern.pop("rows_hits")
     log(json.dumps({"precision": precision_record(kern, rows_hits)}))
     names = {"none": "closest_hit", "bvh": "closest_hit_bvh",
@@ -1723,4 +2177,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) > 1:
+        shard_worker(sys.argv[1:])
+    else:
+        main()

@@ -65,10 +65,41 @@ def find_nvcc() -> str:
     return found
 
 
+def _library_path(stem: str, src: Path, flags) -> Path:
+    key = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
+    return BUILD_DIR / f"lib{stem}_{key.hexdigest()[:16]}.so"
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}_{key.hexdigest()[:16]}.so"
+    return _library_path(name, CSRC / f"{name}.cu", NVCC_FLAGS)
+
+
+def compile_library(stem: str, src: Path, compiler: str, flags) -> Path:
+    """Compile ``src`` with ``compiler flags -o out src`` into
+    ``build/mort_tpu_torch/lib<stem>_<key>.so`` unless it is built already;
+    the key hashes the source and the flags.  The compiler writes a
+    temporary file that is renamed into place, so concurrent builds never
+    load a half-written library; its output is kept beside it (``.log``).
+    Raises ``RuntimeError`` with the compiler's output when it fails."""
+    out = _library_path(stem, src, flags)
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    try:
+        cmd = [compiler, *flags, "-o", tmp, str(src)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"{os.path.basename(compiler)} failed "
+                               f"({res.returncode}) for {src.name}:\n"
+                               f"{res.stdout}{res.stderr}")
+        out.with_suffix(".log").write_text(res.stdout + res.stderr)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
 
 
 def build(name: str) -> Path:
@@ -76,21 +107,8 @@ def build(name: str) -> Path:
     out = library_path(name)
     if out.exists():
         return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    try:
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}) for "
-                               f"{name}.cu:\n{res.stdout}{res.stderr}")
-        out.with_suffix(".log").write_text(res.stdout + res.stderr)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+    return compile_library(name, CSRC / f"{name}.cu", find_nvcc(),
+                           NVCC_FLAGS)
 
 
 def build_log(name: str) -> str:

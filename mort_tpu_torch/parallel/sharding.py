@@ -1,22 +1,197 @@
-"""The differentiable train step (scene-parameter optimisation).
+"""Pixel sharding over several devices, and the differentiable train step.
 
-The port of ``mort_tpu.parallel.sharding``'s ``make_train_step``,
-``_DIFF_FIELDS``, ``_extract_diff`` and ``_merge_diff``, on one device.
-Sharding pixels over several cards with a gradient all-reduce
-(``render_sharded``, ``make_mesh``) is not ported yet: ``mesh`` other than
-None raises.
+The port of ``mort_tpu.parallel.sharding``.  The JAX package runs one
+process over a mesh of devices; the port is SPMD: one process a device,
+on ``torch.distributed``'s default process group, which the caller
+initialises first (NCCL across cards, gloo on the CPU or for several ranks
+that share one card), as the JAX caller runs ``jax.distributed.initialize``.
+``make_mesh(1)`` needs no process group.
+
+* **Data parallelism over pixels**: each rank renders its own pixels.  The
+  forward pass runs no collective until the final gather of the
+  framebuffer: rays are independent, and the counter-based RNG keys every
+  draw by the global pixel id, so any mesh size renders the same samples.
+* **Scene replication**: every rank holds the whole ``SceneData``.
+* **Gradient all-reduce**: the train step sums its loss and the ten scene
+  gradients over the ranks in one flat bucket, one ``all_reduce`` a mesh
+  axis (the inner "ici" axis first, then "dcn").
+
+Every collective of this package goes through ``_all_reduce``, which
+counts it, so an entry point can report the collectives it ran.
 """
 
 from __future__ import annotations
 
+import os
+import socket
+from collections import Counter
+from dataclasses import dataclass, field
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..camera import Camera
 from ..device import require_cuda
 from ..rng import DEFAULT_SEED
 from ..scene.build import SceneData, SceneMeta
-from ..render.renderer import radiance_for_pixels
+from ..render.renderer import _pick_ray_batch, radiance_for_pixels
+
+
+@dataclass(eq=False)
+class Mesh:
+    """This rank's view of the device mesh.
+
+    ``axis_names`` ``("rays",)`` or ``("dcn", "ici")`` and ``shape`` (one
+    size an axis) as in the JAX package; the shard id is the rank,
+    outer-major (rank = dcn index * chips + ici index).  ``groups`` holds
+    one process group an axis, outer first (None is the default group), and
+    is empty without a process group: then the mesh has one rank and runs
+    no collective."""
+    axis_names: tuple
+    shape: tuple
+    rank: int
+    device: torch.device
+    groups: tuple = ()
+    collectives: Counter = field(default_factory=Counter)
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.shape))
+
+
+def make_mesh(n_devices=None, devices=None, shape=None) -> Mesh:
+    """Device mesh for pixel sharding, one rank a device.
+
+    1-D: ``make_mesh(n)`` -> a "rays" axis over the n ranks of the default
+    process group (n defaults to its world size); ``make_mesh(1)`` needs no
+    process group.  2-D: ``make_mesh(shape=(hosts, chips))`` -> the ("dcn",
+    "ici") mesh: rank r is host r // chips, chip r % chips, so every "ici"
+    row must lie on one host (torchrun numbers a node's ranks
+    contiguously); raises otherwise.
+
+    ``devices``: one ``torch.device`` a rank, indexed by rank (two ranks
+    may share a card: ``["cuda:0", "cuda:0"]`` on a gloo group).  The
+    default is ``cuda:{LOCAL_RANK}``; it raises where no card is visible,
+    so the CPU is taken only when asked (``devices=["cpu"] * n``)."""
+    if shape is not None and n_devices is not None:
+        raise ValueError("pass n_devices or shape, not both")
+    grouped = dist.is_available() and dist.is_initialized()
+    world = dist.get_world_size() if grouped else 1
+    rank = dist.get_rank() if grouped else 0
+    if shape is not None:
+        shape = tuple(int(s) for s in shape)
+        if len(shape) != 2:
+            raise ValueError(f"shape must be (hosts, chips), got {shape}")
+        n = shape[0] * shape[1]
+    else:
+        n = world if n_devices is None else int(n_devices)
+    if n != world:
+        raise ValueError(
+            f"a mesh of {n} devices needs a process group of {n} ranks, "
+            f"one a device; have {world}"
+            + ("" if grouped else " (no process group is initialised)"))
+    if devices is None:
+        require_cuda()
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    else:
+        if len(devices) < n:
+            raise ValueError(f"{len(devices)} devices for a mesh of {n}")
+        device = torch.device(devices[rank])
+    if device.type == "cuda":
+        # NCCL and all_gather_object act on the current card
+        torch.cuda.set_device(device)
+    if shape is None:
+        return Mesh(("rays",), (n,), rank, device, (None,) if grouped else ())
+    hosts, chips = shape
+    groups = ()
+    if grouped:
+        # every rank creates every group, in the same order
+        rows = [dist.new_group([h * chips + c for c in range(chips)])
+                for h in range(hosts)]
+        cols = [dist.new_group([h * chips + c for h in range(hosts)])
+                for c in range(chips)]
+        groups = (cols[rank % chips], rows[rank // chips])
+        names = [None] * world
+        dist.all_gather_object(names, socket.gethostname())
+        for h in range(hosts):
+            row = set(names[h * chips:(h + 1) * chips])
+            if len(row) != 1:
+                raise ValueError(
+                    f"an 'ici' row spans hosts {sorted(row)}; use "
+                    f"shape=(hosts, ranks a host) so each row maps to one "
+                    f"host's cards")
+    return Mesh(("dcn", "ici"), shape, rank, device, groups)
+
+
+def mesh_axes(mesh: Mesh) -> tuple:
+    """The mesh's data-parallel axis names as a flat tuple (outer-major):
+    the pixel axis is sharded over every one of them."""
+    return tuple(mesh.axis_names)
+
+
+def check_mesh(mesh, device=None) -> torch.device:
+    """``mesh``'s device; raises if ``mesh`` is not a ``Mesh`` or
+    ``device`` names another device."""
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a Mesh (make_mesh), got "
+                        f"{type(mesh).__name__}")
+    if device is not None and torch.device(device) != mesh.device:
+        raise ValueError(f"device {device} is not the mesh's device "
+                         f"{mesh.device} on rank {mesh.rank}")
+    return mesh.device
+
+
+def _all_reduce(mesh: Mesh, t: torch.Tensor, what: str) -> int:
+    """Sum ``t`` in place over every rank of ``mesh``: over the inner axis
+    first, then the outer.  Counts each call in ``mesh.collectives[what]``
+    and returns the number run (0 without a process group)."""
+    for g in reversed(mesh.groups):
+        dist.all_reduce(t, group=g)
+        mesh.collectives[what] += 1
+    return len(mesh.groups)
+
+
+def _padded_pixels(W, H, n_shards):
+    WH = W * H
+    per = -(-WH // n_shards)
+    pix = np.minimum(np.arange(n_shards * per, dtype=np.int32), WH - 1)
+    return pix, WH
+
+
+def render_sharded(data: SceneData, meta: SceneMeta, cam: Camera, mesh: Mesh,
+                   seed=DEFAULT_SEED, chunk=512, differentiable=False):
+    """Render with pixels sharded over ``mesh``; returns the [H, W, 3]
+    numpy image (row 0 = bottom) on every rank.
+
+    Rank r renders the r-th contiguous block of the padded pixel ids
+    (``_padded_pixels``) through the lockstep ``radiance_for_pixels``, in
+    batches of ``_pick_ray_batch``; one all-reduce of a zero-filled image
+    (each pixel comes from one rank) gathers the blocks."""
+    device = check_mesh(mesh)
+    W, H = cam.image_width, cam.image_height
+    n, sid = mesh.size, mesh.rank
+    pix, WH = _padded_pixels(W, H, n)
+    per = len(pix) // n
+    pix = torch.from_numpy(pix[sid * per:(sid + 1) * per]).to(device,
+                                                                torch.int64)
+    data, cam = data.to(device), cam.to(device)
+    B = min(_pick_ray_batch(meta, per), per)
+    with torch.set_grad_enabled(differentiable):
+        block = torch.cat([radiance_for_pixels(
+            data, meta, cam, int(seed), pix[s0:s0 + B], chunk=chunk,
+            differentiable=differentiable) for s0 in range(0, per, B)])
+    fb = torch.zeros((n * per, 3), dtype=torch.float32, device=device)
+    fb[sid * per:(sid + 1) * per] = block.detach()
+    _all_reduce(mesh, fb, "gather")
+    fb = fb[:WH].cpu().numpy()
+    fb[np.isnan(fb)] = 0.0
+    return fb.reshape(H, W, 3)
+
+
+# ---------------------------------------------------------------------------
+# Differentiable train step (scene-parameter optimisation)
+# ---------------------------------------------------------------------------
 
 # The differentiable scene leaves (the JAX package's names, so gradients
 # compare key by key).
@@ -32,23 +207,32 @@ def _merge_diff(data: SceneData, diff: dict) -> SceneData:
     return data.replace(**diff)
 
 
-def make_train_step(meta: SceneMeta, device=None, chunk=512, use_kernel=None,
-                    accel=None, mesh=None):
+def make_train_step(meta: SceneMeta, mesh: Mesh | None = None, device=None,
+                    chunk=512, use_kernel=None, accel=None):
     """Build ``run(data, cam, target_img, seed) -> (loss, grads)``: the MSE
     of ``radiance_for_pixels(differentiable=True)`` over all pixels against
     ``target_img`` ([H, W, 3], row 0 = bottom), and its gradient with
-    respect to each of ``_DIFF_FIELDS`` (a dict of tensors on ``device``).
+    respect to each of ``_DIFF_FIELDS`` (a dict of tensors on the device).
 
-    ``device``: None is the card (``require_cuda``); pass ``"cpu"`` for the
-    plain versions.  ``use_kernel`` and ``accel``: as in
+    ``mesh``: None renders every pixel on ``device`` (None is the card,
+    ``require_cuda``; pass ``"cpu"`` for the plain versions).  With a mesh,
+    rank r renders the r-th contiguous block of the padded pixel ids
+    (``_padded_pixels``; the target is padded with its last row) on the
+    mesh's device, its loss is its block's mean squared error divided by
+    the mesh size (the JAX package's mean over the padded pixels), and the
+    loss and the gradients are summed over the ranks in one flat bucket:
+    one ``all_reduce`` a mesh axis a step (``run.collectives``, the counts
+    of the last step).  ``make_mesh(1)`` gives ``mesh=None``'s step bit for
+    bit.  ``use_kernel`` and ``accel``: as in
     ``renderer.radiance_for_pixels`` (None: the kernel on a card,
     ``intersect_best`` on the CPU).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_train_step: pixel sharding over several devices is not "
-            "ported yet")
-    device = require_cuda() if device is None else torch.device(device)
+    if mesh is None:
+        device = require_cuda() if device is None else torch.device(device)
+        n, sid = 1, 0
+    else:
+        device = check_mesh(mesh, device)
+        n, sid = mesh.size, mesh.rank
 
     # The step's operands live on the device across calls, keyed on the
     # identity of the caller's objects: a training loop passes the same
@@ -62,15 +246,19 @@ def make_train_step(meta: SceneMeta, device=None, chunk=512, use_kernel=None,
         hit = (key is not None and key[0] is data and key[1] is cam
                and key[2] is target_img)
         if not hit:
-            WH = cam.image_width * cam.image_height
+            pix, WH = _padded_pixels(cam.image_width, cam.image_height, n)
+            per = len(pix) // n
             target = torch.as_tensor(
                 np.asarray(target_img, np.float32).reshape(-1, 3)
                 if not isinstance(target_img, torch.Tensor)
                 else target_img.reshape(-1, 3)).to(device, torch.float32)
-            pix = torch.arange(WH, dtype=torch.int64, device=device)
+            target = torch.cat(
+                [target, target[-1:].expand(n * per - WH, 3)])
+            block = slice(sid * per, (sid + 1) * per)
+            pix = torch.from_numpy(pix[block]).to(device, torch.int64)
             prep_cache.update(key=(data, cam, target_img),
-                              val=(data.to(device), cam.to(device), target,
-                                   pix))
+                              val=(data.to(device), cam.to(device),
+                                   target[block], pix))
         return prep_cache["val"]
 
     def run(data: SceneData, cam: Camera, target_img, seed=DEFAULT_SEED):
@@ -82,9 +270,22 @@ def make_train_step(meta: SceneMeta, device=None, chunk=512, use_kernel=None,
                                   differentiable=True, use_kernel=use_kernel,
                                   accel=accel)
         loss = torch.mean((img - target) ** 2)
+        if n > 1:
+            loss = loss / n
         grads = torch.autograd.grad(loss, list(diff.values()),
                                     allow_unused=True, materialize_grads=True)
-        return loss.detach(), dict(zip(diff, grads))
+        loss = loss.detach()
+        run.collectives = Counter()
+        if mesh is not None and mesh.groups:
+            bucket = torch.cat([loss.reshape(1)]
+                               + [g.reshape(-1) for g in grads])
+            run.collectives["all_reduce"] = _all_reduce(mesh, bucket,
+                                                        "grads")
+            loss = bucket[0]
+            parts = bucket[1:].split([g.numel() for g in grads])
+            grads = [p.reshape(g.shape) for p, g in zip(parts, grads)]
+        return loss, dict(zip(diff, grads))
 
     run.prep_cache = prep_cache
+    run.collectives = Counter()
     return run

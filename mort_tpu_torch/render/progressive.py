@@ -132,11 +132,17 @@ def render_progressive_wavefront(data: SceneData, meta: SceneMeta,
 
     ``state.samples_done`` advances in whole layers (``spt`` samples each,
     ``spt`` defaulting to min(spp, 16)); resume must use the same ``seed``
-    and ``spt``.  ``mesh`` (sharding) is not ported yet and raises in
-    ``render_wavefront``."""
+    and ``spt``.  ``mesh`` (``parallel.sharding.make_mesh``) shards each
+    step's pixels over its ranks (then ``device`` defaults to the mesh's);
+    ``state.fb`` stays in canonical pixel order on every rank, so a render
+    checkpointed on one mesh size resumes on another bit-identically.  Only
+    rank 0 writes the checkpoint."""
     from .wavefront import render_wavefront
 
-    device = require_cuda() if device is None else torch.device(device)
+    if mesh is None:
+        device = require_cuda() if device is None else torch.device(device)
+    elif mesh.rank != 0:
+        checkpoint_path = None
     W, H = cam.image_width, cam.image_height
     spp = cam.sqrt_spp ** 2
     if spt is None:

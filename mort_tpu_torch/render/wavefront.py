@@ -23,8 +23,19 @@ Every reference scene renders: constant media are sampled after the closest
 hit (``media_pass``), lights through the mixture pdf and fallback
 (image/noise) textures inline in ``finalize_and_shade``.  The JAX package's
 deferred-texture mode is not ported: it served the TPU, whose texel gather
-is serialised, and changes only the float32 association of the image.  Not
-ported yet: the mesh-sharded path (raises ``NotImplementedError``).
+is serialised, and changes only the float32 association of the image.
+
+Several devices
+---------------
+``render_wavefront(..., mesh=...)`` shards the task space over the ranks of
+a ``parallel.sharding.Mesh`` (one process a device): pixels are dealt
+round-robin (global pixel = local * n_shards + shard id), so every rank's
+pool sees the whole image and the ranks' loads balance.  Rays and Philox
+draws are keyed by the global pixel id, spans are layer-aligned, so each
+pixel deposits once a layer and ``index_add_`` never sees one pixel twice
+in a call: the image is bit-identical for any mesh size.  The spans run
+no collective; one all-reduce of a zero-filled canonical framebuffer (each
+pixel from one rank) gathers the image on every rank.
 """
 
 from __future__ import annotations
@@ -34,7 +45,9 @@ import torch
 
 from ..camera import Camera, derive_basis, get_rays_soa
 from ..rng import DEFAULT_SEED
+from ..parallel.sharding import _all_reduce, check_mesh
 from ..scene.build import SceneData, SceneMeta
+from ..device import require_cuda
 from . import closest_hit as ch
 from . import vec as v3
 from .hitshade import finalize_and_shade
@@ -46,13 +59,19 @@ from .vec import V3
 def _span_core(data: SceneData, meta: SceneMeta, cam: Camera, seed: int,
                fb: torch.Tensor, task_start: int, task_end: int, *,
                pool: int, window: int, spt: int, use_kernel: bool,
-               accel: str, no_defocus: bool):
-    """Run the wavefront over chunk-tasks [task_start, task_end),
-    accumulating into ``fb`` [W*H, 3] in place.  Returns
-    (iterations, useful_segments) as Python ints."""
+               accel: str, no_defocus: bool, per: int, n_shards: int,
+               shard_id: int):
+    """Run the wavefront over local chunk-tasks [task_start, task_end),
+    accumulating into ``fb`` [per, 3] in place.  Returns
+    (iterations, useful_segments) as Python ints.
+
+    ``per``/``n_shards``/``shard_id``: local pixel count and round-robin
+    shard placement — local pixel p is global pixel p*n_shards+shard_id
+    (identity when n_shards == 1).  Rays and RNG use the global id; padding
+    pixels (global id >= W*H) are consumed but never activated."""
     dev = fb.device
     W, H = cam.image_width, cam.image_height
-    per = W * H
+    WH = W * H
     spp = cam.sqrt_spp * cam.sqrt_spp
     total = task_end
     inv_spp = float(np.float32(1.0 / spp))
@@ -71,10 +90,16 @@ def _span_core(data: SceneData, meta: SceneMeta, cam: Camera, seed: int,
         return ch.split_row(ch.closest_hit_reference(
             packed, ch.stack_rays(ro, rd, tme)))
 
+    def to_global(local_pixel):
+        if n_shards == 1:
+            return local_pixel
+        return local_pixel * n_shards + shard_id
+
     def bounce_step(s):
         act = s["alive"]
         s["useful"] += act.sum()
-        pixel, sample, bounce = s["pixel"], s["sample"], s["bounce"]
+        pixel = to_global(s["pixel"])
+        sample, bounce = s["sample"], s["bounce"]
         ro, rd, tme, beta, L = s["ro"], s["rd"], s["tme"], s["beta"], s["L"]
         bt, bk, bi, row_t = closest(ro, rd, tme)
         bt, bk, bi = media_pass(data, meta, qf, ro, rd, seed, pixel, sample,
@@ -130,13 +155,15 @@ def _span_core(data: SceneData, meta: SceneMeta, cam: Camera, seed: int,
         task = counter + torch.where(idle, ranks, 0)
         has = idle & (task < total)
         new_pixel = task % per
+        if n_shards > 1:
+            has = has & (to_global(new_pixel) < WH)
         s0 = torch.div(task, per, rounding_mode="floor") * spt
         pixel = torch.where(has, new_pixel, s["pixel"])
         sample = torch.where(has, s0, s["sample"])
         s["send"] = torch.where(has, torch.clamp(s0 + spt, max=spp),
                                 s["send"])
-        ro_n, rd_n, t_n = get_rays_soa(cam, basis, seed, pixel, sample,
-                                       no_defocus=no_defocus)
+        ro_n, rd_n, t_n = get_rays_soa(cam, basis, seed, to_global(pixel),
+                                       sample, no_defocus=no_defocus)
         s["ro"] = v3.where(has, ro_n, s["ro"])
         s["rd"] = v3.where(has, rd_n, s["rd"])
         s["tme"] = torch.where(has, t_n, s["tme"])
@@ -185,17 +212,18 @@ def default_pool(meta: SceneMeta, n_pixels: int) -> int:
 
 
 def render_wavefront(data: SceneData, meta: SceneMeta, cam: Camera,
-                     device: torch.device | str, seed=DEFAULT_SEED,
-                     pool=None, max_paths_per_call=200_000_000, fb=None,
+                     device: torch.device | str | None = None,
+                     seed=DEFAULT_SEED, pool=None,
+                     max_paths_per_call=200_000_000, fb=None,
                      task_range=None, scrub_nan=True, window=None, spt=None,
                      use_kernel=None, accel=None, mesh=None,
                      layer_range=None, return_stats=False):
-    """Wavefront render on ``device``; returns linear [H,W,3] float32
-    (row 0 = bottom).
+    """Wavefront render on ``device`` (None: the card, ``require_cuda``, or
+    the mesh's device); returns linear [H,W,3] float32 (row 0 = bottom).
 
     The task space — W*H pixels x ceil(spp/spt) sample-chunks — is split
     into spans of at most ``max_paths_per_call`` camera paths.  ``fb`` (a
-    tensor or a numpy array of W*H x 3 floats, copied onto ``device``) /
+    tensor or a numpy array of W*H x 3 floats, copied onto the device) /
     ``task_range`` (in chunk-task units) allow external accumulation; pass
     ``scrub_nan=False`` to get the raw accumulator back.
 
@@ -204,6 +232,14 @@ def render_wavefront(data: SceneData, meta: SceneMeta, cam: Camera,
     accumulation; spans are then layer-aligned, so each pixel deposits
     exactly once per layer and a resumed render is bit-identical to an
     uninterrupted one.
+
+    ``mesh`` (``parallel.sharding.make_mesh``): pixels are dealt
+    round-robin over its ranks (module docstring) and every rank gets the
+    whole image; spans are always layer-aligned (``layer_range``, default
+    every layer; ``task_range`` raises), ``fb`` and the result are in
+    canonical pixel order, so a render checkpointed on one mesh size
+    resumes on any other, and the image is bit-identical for any mesh size
+    and to the render without a mesh with ``layer_range=(0, n_chunks)``.
 
     ``use_kernel``: None (default) runs the CUDA closest-hit kernel on a
     CUDA device and its plain version on the CPU; False forces the plain
@@ -216,16 +252,24 @@ def render_wavefront(data: SceneData, meta: SceneMeta, cam: Camera,
     Every mode gives the same closest hits.
 
     ``return_stats``: return ``(img, stats)`` with ``iterations``,
-    ``useful_segments`` and ``slots_executed``.
+    ``useful_segments`` and ``slots_executed``; with a mesh also
+    ``per_shard_useful`` (the useful segments of each rank) and
+    ``collectives`` (the collectives the call ran, by purpose: none in
+    its spans, the image's gather and the stats' own).
     """
     if mesh is not None:
-        raise NotImplementedError("mesh-sharded rendering is not ported yet")
+        device = check_mesh(mesh, device)
+        if task_range is not None:
+            raise ValueError("use layer_range with a mesh")
+        n, sid = mesh.size, mesh.rank
+    else:
+        device = require_cuda() if device is None else torch.device(device)
+        n, sid = 1, 0
     if accel is None:
         accel = ch.auto_accel(meta.n_spheres + meta.n_quads)
     elif accel not in ch.ACCELS:
         raise ValueError(f"accel must be one of {ch.ACCELS} or None, got "
                          f"{accel!r}")
-    device = torch.device(device)
     if use_kernel is None:
         use_kernel = device.type == "cuda"
     elif use_kernel and device.type != "cuda":
@@ -234,6 +278,7 @@ def render_wavefront(data: SceneData, meta: SceneMeta, cam: Camera,
     cam = cam.to(device)
     W, H = cam.image_width, cam.image_height
     WH = W * H
+    per = -(-WH // n)
     spp = cam.sqrt_spp ** 2
     if spt is None:
         spt = min(spp, 4 if cam.bounce_limit >= 32 else 8)
@@ -245,34 +290,63 @@ def render_wavefront(data: SceneData, meta: SceneMeta, cam: Camera,
     n_chunks = -(-spp // spt)
     no_defocus = bool(cam.defocus_angle.item() <= 0.0)
     if pool is None:
-        pool = default_pool(meta, WH)
-    if fb is None:
-        fb = torch.zeros((WH, 3), dtype=torch.float32, device=device)
-    else:
+        pool = default_pool(meta, per)
+    if fb is not None:
         fb = torch.as_tensor(fb).reshape(WH, 3).to(
             device=device, dtype=torch.float32, copy=True)
+    if mesh is None:
+        if fb is None:
+            fb = torch.zeros((WH, 3), dtype=torch.float32, device=device)
+    else:
+        # this rank's local pixels p are the global pixels p*n + sid
+        gpix = torch.arange(per, device=device) * n + sid
+        gpix = gpix[gpix < WH]
+        local = torch.zeros((per, 3), dtype=torch.float32, device=device)
+        if fb is not None:
+            local[:len(gpix)] = fb[gpix]
+        fb = local
+        if layer_range is None:
+            layer_range = (0, n_chunks)
     tasks_per_call = max(pool, max_paths_per_call // spt)
     if layer_range is not None:
         if task_range is not None:
             raise ValueError("layer_range and task_range are exclusive")
-        spans = [(s0, min(s0 + tasks_per_call, (c + 1) * WH))
+        spans = [(s0, min(s0 + tasks_per_call, (c + 1) * per))
                  for c in range(*layer_range)
-                 for s0 in range(c * WH, (c + 1) * WH, tasks_per_call)]
+                 for s0 in range(c * per, (c + 1) * per, tasks_per_call)]
     else:
         start, end = (task_range if task_range is not None
                       else (0, WH * n_chunks))
         spans = [(s0, min(s0 + tasks_per_call, end))
                  for s0 in range(start, end, tasks_per_call)]
 
-    stats = {"iterations": 0, "useful_segments": 0, "slots_executed": 0}
+    iters = useful = 0
+    before = sum(mesh.collectives.values()) if mesh is not None else 0
     for s0, s1 in spans:
-        iters, useful = _span_core(
+        it, us = _span_core(
             data, meta, cam, int(seed), fb, s0, s1, pool=int(pool),
             window=int(window), spt=int(spt), use_kernel=bool(use_kernel),
-            accel=accel, no_defocus=no_defocus)
-        stats["iterations"] += iters
-        stats["useful_segments"] += useful
-        stats["slots_executed"] += iters * int(window) * int(pool)
+            accel=accel, no_defocus=no_defocus, per=per, n_shards=n,
+            shard_id=sid)
+        iters += it
+        useful += us
+    stats = {"iterations": iters, "useful_segments": useful,
+             "slots_executed": iters * int(window) * int(pool)}
+    if mesh is not None:
+        out = torch.zeros((WH, 3), dtype=torch.float32, device=device)
+        out[gpix] = fb[:len(gpix)]
+        fb = out
+        sent = {"spans": sum(mesh.collectives.values()) - before,
+                "gather": _all_reduce(mesh, fb, "gather")}
+        if return_stats:
+            # per-rank iterations and useful segments, summed into place
+            per_rank = torch.zeros((2, n), dtype=torch.int64, device=device)
+            per_rank[:, sid] = torch.tensor([iters, useful])
+            sent["stats"] = _all_reduce(mesh, per_rank, "stats")
+            it_r, us_r = per_rank.tolist()
+            stats = {"iterations": max(it_r), "useful_segments": sum(us_r),
+                     "slots_executed": sum(it_r) * int(window) * int(pool),
+                     "per_shard_useful": us_r, "collectives": sent}
     if scrub_nan:
         fb = torch.where(torch.isnan(fb), 0.0, fb)
     img = fb.reshape(H, W, 3)

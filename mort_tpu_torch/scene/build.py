@@ -56,6 +56,24 @@ from .types import (
 # ---------------------------------------------------------------------------
 
 @dataclass
+class BVHArrays:
+    """Flat BVH emitted by the host build (``scene/bvh.py``).
+
+    node_min/node_max: [Nn,3] f32 per-node AABB;  left/right: [Nn] i32
+    child node id for internal nodes, leaf payload row for leaves;
+    left_kind/right_kind: [Nn] i32 OBJ_SPHERE/OBJ_QUAD tag of leaf
+    payloads; is_leaf: [Nn] bool.
+    """
+    node_min: torch.Tensor
+    node_max: torch.Tensor
+    left: torch.Tensor
+    right: torch.Tensor
+    left_kind: torch.Tensor
+    right_kind: torch.Tensor
+    is_leaf: torch.Tensor
+
+
+@dataclass
 class SceneData:
     """Flat scene tensors (the analogue of the reference's __constant__
     scene upload, objects.cuh:848-856).  Integer rows are int32, flags

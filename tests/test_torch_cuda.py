@@ -628,3 +628,58 @@ def test_cli_render_on_card(dev, tmp_path, capsys):
     assert ch.launch_count["none"] > before
     assert img.shape == (48, 48, 3) and np.isfinite(img).all()
     assert 0.0 < float(img.mean()) < 2.0 and rec["paths"] == 48 * 48 * 4
+
+
+def test_one_rank_nccl_mesh_on_card(dev, tmp_path):
+    """The sharded paths on a 1-rank NCCL group: ``render_wavefront`` over
+    ``make_mesh(1)`` launches the kernel and is bit-equal to the render
+    without a mesh over layer-aligned spans; the sharded train step runs
+    one all-reduce (its flat gradient bucket) and gives the single-device
+    step; ``render_sharded`` gives the lockstep ``render``."""
+    import datetime
+
+    import torch.distributed as dist
+    from mort_tpu_torch import (
+        make_mesh, make_train_step, render, render_sharded,
+    )
+
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh(1)
+        assert mesh.device == dev and mesh.groups == (None,)
+        world, cam = sc.random_spheres()
+        data, meta = world.compile()
+        cam = cam.replace(image_width=64, image_height=36, sqrt_spp=2,
+                          bounce_limit=8)
+        before = dict(ch.launch_count)
+        img, stats = render_wavefront(data, meta, cam, mesh=mesh,
+                                      return_stats=True)
+        torch.cuda.synchronize()
+        assert ch.launch_count["none"] > before["none"]
+        assert stats["collectives"] == {"spans": 0, "gather": 1, "stats": 1}
+        n_chunks = -(-cam.sqrt_spp ** 2 // min(cam.sqrt_spp ** 2, 8))
+        want = render_wavefront(data, meta, cam, dev,
+                                layer_range=(0, n_chunks))
+        assert img.device == dev and torch.equal(img, want)
+
+        target = want.cpu().numpy() * 0.9
+        step = make_train_step(meta, mesh)
+        before = dict(ch.launch_count)
+        loss, grads = step(data, cam, target, 7)
+        torch.cuda.synchronize()
+        assert ch.launch_count["bwd"] > before["bwd"]
+        assert step.collectives["all_reduce"] == 1
+        w_loss, w_grads = make_train_step(meta)(data, cam, target, 7)
+        torch.testing.assert_close(loss, w_loss, rtol=1e-4, atol=0.0)
+        for k, g in grads.items():
+            assert bool(torch.isfinite(g).all()), k
+            torch.testing.assert_close(g, w_grads[k], rtol=1e-3, atol=1e-6)
+
+        sharded = render_sharded(data, meta, cam, mesh)
+        lock = render(data, meta, cam).cpu().numpy()
+        assert sharded.shape == lock.shape
+        np.testing.assert_allclose(sharded, lock, rtol=0.0, atol=1e-5)
+    finally:
+        dist.destroy_process_group()

@@ -6,7 +6,7 @@ test_pallas_kernel.py::test_fd_gradient_through_train_step_cornell): the
 same scene, camera, target and seed; both take their default CPU route (the
 XLA intersector in JAX, ``intersect_best`` under plain autograd in the
 port).  Then finite differences of the port's own step, the identity cache
-of its device operands, and the unported ``mesh``.
+of its device operands, and a ``mesh`` that is not the port's.
 """
 
 import dataclasses
@@ -22,6 +22,7 @@ from mort_tpu.render.renderer import render as j_render
 from mort_tpu.scene import scenes as jsc
 from mort_tpu_torch.camera import camera_from_numpy
 from mort_tpu_torch.parallel.sharding import _DIFF_FIELDS, make_train_step
+from mort_tpu_torch.parallel.sharding import make_mesh as make_mesh_port
 from mort_tpu_torch.scene.build import scene_from_numpy
 
 SEED = 11
@@ -144,6 +145,11 @@ def test_identity_cache(cornell):
 
 
 def test_mesh_is_not_ported(cornell):
+    """A mesh must come from ``make_mesh`` (the sharded step is covered by
+    tests/test_torch_sharding.py), and its device is the step's."""
     _j, (_data, meta, _cam), _t = cornell
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         make_train_step(meta, device="cpu", mesh=object())
+    with pytest.raises(ValueError):
+        make_train_step(meta, make_mesh_port(1, devices=["cpu"]),
+                        device="cuda")

@@ -104,10 +104,11 @@ def test_return_stats(three_sphere_scene):
 
 
 def test_unported_paths_raise(three_sphere_scene):
-    """Only the mesh-sharded path is unported; the kernel needs a card; an
-    unknown accel mode is refused.  Light sampling renders (Cornell box)."""
+    """A mesh must come from ``make_mesh`` (tests/test_torch_sharding.py
+    covers the sharded path); the kernel needs a card; an unknown accel
+    mode is refused.  Light sampling renders (Cornell box)."""
     data, meta, cam = _port(three_sphere_scene)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         render_wavefront(data, meta, cam, "cpu", mesh=object())
     with pytest.raises(ValueError):
         render_wavefront(data, meta, cam, "cpu", use_kernel=True)
