@@ -102,10 +102,23 @@ Phases, one line each or more (any failure raises and exits non-zero):
    spans at that scene-1 config (at full size it would cost phase 5's
    wall again); a worker that fails or outlives its timeout fails the run;
    (c) the host BVH builder: g++ builds it and it equals the numpy builder
-   bit for bit.
+   bit for bit;
+18. the parity gate (``mort_tpu_torch.parity``): the 13 configs of
+   tools/tpu_parity.py (all ten scenes at 120 px, 16 spp, depth 10, scene
+   6 at depth 50, scene 1 forced to "bvh" and to "cull") rendered on the
+   card at seeds A and B and held against the JAX package's committed CPU
+   images (``mort_tpu_torch/data/parity_refs.npz``) by the tool's noise
+   and bias rules; one line a config, then a ``{"parity": ...}`` record;
+19. BASELINE config #5 (``mort_tpu_torch.config5``): final_scene at
+   1920x1080 and its depth 40 with spp cut to 1 (the run's time) after a
+   4096-task warm-up span, then the train step at its own 480x270, 4 spp,
+   depth 8; launch counts reset just before and read just after;
+20. the bench entry (``mort_tpu_torch.bench``): scene 5's record (2
+   frames) and the ``--grad`` record, each summary line checked for
+   bench.py's four keys.
 
 Files go to build/chip_smoke/ (git-ignored).  The last lines are a JSON
-record of phase 17 (``{"sharding": ...}``: walls, launches, collectives,
+record of phases 18-20 (``{"tools": ...}``), a JSON record of phase 17 (``{"sharding": ...}``: walls, launches, collectives,
 bit-equal flags), a JSON record of the numerics (``{"precision": ...}``:
 TF32 off, each kernel's largest error, rows bit-equal on hit lanes), a
 JSON record of the kernels (launches on the paths above, the largest error
@@ -118,6 +131,7 @@ package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import datetime
 import io
@@ -142,6 +156,7 @@ from mort_tpu_torch import (  # noqa: E402
 )
 from mort_tpu_torch import _build, rng  # noqa: E402
 from mort_tpu_torch.device import card_line  # noqa: E402
+from mort_tpu_torch.parallel.launch import run_ranks  # noqa: E402
 from mort_tpu_torch.profile_wavefront import (  # noqa: E402
     _device_us, device_times,
 )
@@ -1630,37 +1645,20 @@ def run_shard_workers(d, ckpt):
     each rank's results and the seconds they took together."""
     tag = f"{os.getpid()}_{time.time_ns()}"
     store = os.path.join(d, f"store_gloo_{tag}")
-    logs = [os.path.join(d, f"shard_rank{r}.log") for r in
-            range(SHARD_WORLD)]
     for f in [ckpt] + [os.path.join(d, f"shard_rank{r}.npz")
                        for r in range(SHARD_WORLD)]:
         if os.path.exists(f):
             os.unlink(f)
-    t0 = time.perf_counter()
-    procs = []
     try:
-        for r in range(SHARD_WORLD):
-            with open(logs[r], "w") as f:
-                procs.append(subprocess.Popen(
-                    [sys.executable, os.path.abspath(__file__), "--rank",
-                     str(r), "--world", str(SHARD_WORLD), "--store", store,
-                     "--out", d, "--ckpt", ckpt],
-                    cwd=os.path.dirname(os.path.abspath(__file__)),
-                    stdout=f, stderr=subprocess.STDOUT))
-        for p in procs:
-            p.wait(timeout=WORKER_TIMEOUT_S)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait(timeout=60)
-    seconds = time.perf_counter() - t0
-    for r, p in enumerate(procs):
-        if p.returncode != 0:
-            with open(logs[r]) as f:
-                tail = f.read()[-4000:]
-            raise AssertionError(f"phase 17: worker rank {r} exited "
-                                 f"{p.returncode}:\n{tail}")
+        seconds = run_ranks(
+            [[sys.executable, os.path.abspath(__file__), "--rank", r,
+              "--world", SHARD_WORLD, "--store", store, "--out", d,
+              "--ckpt", ckpt] for r in range(SHARD_WORLD)],
+            [os.path.join(d, f"shard_rank{r}.log")
+             for r in range(SHARD_WORLD)],
+            WORKER_TIMEOUT_S, cwd=os.path.dirname(os.path.abspath(__file__)))
+    except RuntimeError as e:
+        raise AssertionError(f"phase 17: worker {e}") from None
     return [dict(np.load(os.path.join(d, f"shard_rank{r}.npz")))
             for r in range(SHARD_WORLD)], seconds
 
@@ -1921,6 +1919,110 @@ def sharded_paths(dev, card, scene1_img, scene1_wall, step_wall):
 
 
 
+# Phase 19's cut: 1 spp of config #5's 16, and a 4096-task warm-up span
+# in place of a whole warm-up frame (the run's time limit)
+CONFIG5_SPP, CONFIG5_WARMUP_TASKS = 1, 4096
+BENCH_LINE_KEYS = {"metric", "value", "unit", "vs_baseline"}
+
+
+def parity_phase(dev, card):
+    """Phase 18: every config of the parity gate on the card against the
+    committed JAX references; fails the run if one fails.  Returns the
+    record and the launches of each mode over the phase."""
+    from mort_tpu_torch import parity
+
+    reset_counts()
+    rec = parity.run(dev, log=log)
+    counts = read_counts()
+    log(json.dumps({"parity": rec}))
+    bad = [r["label"] for r in rec["scenes"] if not r["ok"]]
+    assert rec["ok"] and not bad, f"phase 18: parity fails on {bad}"
+    for mode in ch.ACCELS:
+        assert counts[mode] > 0, f"phase 18: no {mode} launch"
+    log(f"parity: {len(rec['scenes'])} configs OK against the JAX package's "
+        f"CPU references (worst cross/noise "
+        f"{max(r['cross_over_noise'] for r in rec['scenes']):.3f}, worst "
+        f"channel error "
+        f"{max(r['channel_mean_rel_err'] for r in rec['scenes']):.5f}); "
+        f"launches none {counts['none']}, bvh {counts['bvh']}, cull "
+        f"{counts['cull']} | {card}")
+    return rec, counts
+
+
+def config5_phase(dev, card):
+    """Phase 19: BASELINE config #5 through ``config5.run_device`` with
+    spp cut to CONFIG5_SPP, launch counts reset just before and read just
+    after.  Returns the record and the counts."""
+    from mort_tpu_torch import config5
+
+    reset_counts()
+    rec = config5.run_device(dev, spp=CONFIG5_SPP,
+                             warmup_tasks=CONFIG5_WARMUP_TASKS, log=log)
+    counts = read_counts()
+    assert counts["none"] > 0 and counts["bwd"] > 0, counts
+    log(f"config5: final_scene 1920x1080 depth {rec['depth']}, spp cut from "
+        f"16 to {rec['spp']} for the run's time, warm-up span "
+        f"{CONFIG5_WARMUP_TASKS} tasks: {json.dumps(rec)}; launches none "
+        f"{counts['none']}, bwd {counts['bwd']}")
+    return rec, counts
+
+
+def bench_phase(dev, card):
+    """Phase 20: ``mort_tpu_torch.bench`` for scene 5 (2 frames) and
+    ``--grad``, their summary lines checked for bench.py's keys.  Returns
+    the records (scene 5's, the grad step's) and the launches of each."""
+    from mort_tpu_torch import bench
+
+    recs, counts = [], []
+    for argv in (["--scene", "5", "--frames", "2"], ["--grad"]):
+        out = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(out):
+            (rec,) = bench.main(argv)
+        counts.append(read_counts())
+        line = json.loads(out.getvalue().strip().splitlines()[-1])
+        assert set(line) == BENCH_LINE_KEYS, line
+        assert line["unit"] == "paths/s/chip" and line["value"] > 0, line
+        log(f"bench {' '.join(argv)}: {json.dumps(rec)}; summary line "
+            f"{json.dumps(line)}; launches none {counts[-1]['none']}, bwd "
+            f"{counts[-1]['bwd']}")
+        recs.append(rec)
+    assert counts[0]["none"] > 0 and counts[1]["bwd"] > 0, counts
+    return recs, counts
+
+
+def tool_phases(dev, card, t_start):
+    """Phases 18-20, each timed; returns their record."""
+    out = {}
+    t0 = time.perf_counter()
+    parity, counts18 = parity_phase(dev, card)
+    out["parity_s"] = time.perf_counter() - t0
+    log(f"phase 18 took {out['parity_s']:.1f} s, done at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    t0 = time.perf_counter()
+    c5, counts19 = config5_phase(dev, card)
+    out["config5_s"] = time.perf_counter() - t0
+    log(f"phase 19 took {out['config5_s']:.1f} s, done at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    t0 = time.perf_counter()
+    (b5, bgrad), counts20 = bench_phase(dev, card)
+    out["bench_s"] = time.perf_counter() - t0
+    log(f"phase 20 took {out['bench_s']:.1f} s, done at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    out.update({
+        "parity_ok": parity["ok"],
+        "parity_ratio": {r["label"]: r["cross_over_noise"]
+                         for r in parity["scenes"]},
+        "parity_launches": {m: counts18[m] for m in ch.ACCELS},
+        "config5": c5, "config5_launches": {k: counts19[k]
+                                            for k in ("none", "bwd")},
+        "bench5": b5, "bench_grad": bgrad,
+        "bench_launches": [{k: c[k] for k in ("none", "bwd")}
+                           for c in counts20],
+        "card": card})
+    return out
+
+
 def precision_record(kern, rows_hits):
     """The card counterpart of tools/mosaic_check.py: TF32 off for matmuls
     and cuDNN, float32 matmul precision "highest", every kernel's largest
@@ -2134,6 +2236,9 @@ def main():
     log(f"phase 17 took {sharding['seconds']:.1f} s, done at "
         f"{time.perf_counter() - t_start:.1f} s")
 
+    # ---- 18-20. the parity gate, config #5 and the bench entry ----
+    tools = tool_phases(dev, card, t_start)
+
     launches = {"none": counts9["none"], "bvh": counts16m["bvh"],
                 "cull": counts9c["cull"], "bwd": counts10["bwd"],
                 "aaq": counts13["none"]}
@@ -2147,7 +2252,12 @@ def main():
         f"{len(GRAD_SEEDS)} steps), none with the axis-aligned path "
         f"{launches['aaq']} (the cli render 5 main path; progressive scene "
         f"6 {counts14['none']})")
+    log(f"launches of phases 18-20: parity "
+        f"{json.dumps(tools['parity_launches'])}, config5 "
+        f"{json.dumps(tools['config5_launches'])}, bench scene 5 and --grad "
+        f"{json.dumps(tools['bench_launches'])}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"tools": tools}))
     log(json.dumps({"sharding": sharding}))
     rows_hits = kern.pop("rows_hits")
     log(json.dumps({"precision": precision_record(kern, rows_hits)}))

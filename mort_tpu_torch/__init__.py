@@ -20,7 +20,7 @@ from .scene.build import (  # noqa: E402
     SceneData, SceneMeta, World, scene_from_numpy,
 )
 from .render.wavefront import render_wavefront  # noqa: E402
-from .render.renderer import render, to_u8  # noqa: E402
+from .render.renderer import render, to_u8, to_u8_np  # noqa: E402
 from .parallel.sharding import (  # noqa: E402
     make_mesh, make_train_step, render_sharded,
 )
@@ -30,7 +30,7 @@ __version__ = "0.1.0"
 __all__ = [
     "Camera", "camera_from_numpy", "make_camera", "DEFAULT_SEED",
     "SceneData", "SceneMeta", "World", "scene_from_numpy",
-    "render_wavefront", "render", "to_u8", "make_train_step", "make_mesh",
-    "render_sharded",
+    "render_wavefront", "render", "to_u8", "to_u8_np", "make_train_step",
+    "make_mesh", "render_sharded",
     "require_cuda", "configure_numerics",
 ]

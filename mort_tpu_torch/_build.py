@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 from pathlib import Path
 
@@ -51,6 +52,29 @@ SIGNATURES = {
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_build_dir: list[Path] = []
+
+
+def build_dir() -> Path:
+    """Where libraries are built: ``BUILD_DIR`` when it can be created and
+    written, else the user's cache directory (the path is printed once).
+    This is a location, not a fallback of the build: a failed compile
+    still raises."""
+    if not _build_dir:
+        try:
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            usable = os.access(BUILD_DIR, os.W_OK | os.X_OK)
+        except OSError:
+            usable = False
+        if usable:
+            _build_dir.append(BUILD_DIR)
+        else:
+            cache = Path(os.environ.get("XDG_CACHE_HOME")
+                         or Path.home() / ".cache")
+            _build_dir.append(cache / "mort_tpu_torch" / "build")
+            print(f"mort_tpu_torch: {BUILD_DIR} is not writable; building "
+                  f"in {_build_dir[0]}", file=sys.stderr)
+    return _build_dir[0]
 
 
 def find_nvcc() -> str:
@@ -67,7 +91,7 @@ def find_nvcc() -> str:
 
 def _library_path(stem: str, src: Path, flags) -> Path:
     key = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
-    return BUILD_DIR / f"lib{stem}_{key.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{stem}_{key.hexdigest()[:16]}.so"
 
 
 def library_path(name: str) -> Path:
@@ -76,7 +100,7 @@ def library_path(name: str) -> Path:
 
 def compile_library(stem: str, src: Path, compiler: str, flags) -> Path:
     """Compile ``src`` with ``compiler flags -o out src`` into
-    ``build/mort_tpu_torch/lib<stem>_<key>.so`` unless it is built already;
+    ``build_dir()/lib<stem>_<key>.so`` unless it is built already;
     the key hashes the source and the flags.  The compiler writes a
     temporary file that is renamed into place, so concurrent builds never
     load a half-written library; its output is kept beside it (``.log``).

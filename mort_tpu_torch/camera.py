@@ -196,3 +196,9 @@ def get_rays_soa(cam: Camera, basis: CameraBasis, seed, pixel_ids,
                 torch.where(use, disk.y, center.y),
                 torch.where(use, disk.z, center.z))
     return origin, pixel_sample - origin, u_time
+
+
+def get_rays(cam: Camera, basis: CameraBasis, seed, pixel_ids, sample_ids):
+    """AoS wrapper over :func:`get_rays_soa`: returns ([R,3], [R,3], [R])."""
+    ro, rd, t = get_rays_soa(cam, basis, seed, pixel_ids, sample_ids)
+    return ro.to_rows(), rd.to_rows(), t

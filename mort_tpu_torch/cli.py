@@ -57,29 +57,35 @@ def _build(args):
     else:
         world, cam = sc.build_scene(args.scene)
 
-    overrides = {}
-    if args.width is not None:
-        overrides["image_width"] = args.width
-        overrides["image_height"] = max(1, int(args.width * cam.image_height / cam.image_width))
-    if args.spp is not None:
-        overrides["sqrt_spp"] = max(1, int(math.sqrt(args.spp)))
-    if args.depth is not None:
-        overrides["bounce_limit"] = args.depth
-    if overrides:
-        cam = cam.replace(**overrides)
+    cam = override_camera(cam, args.width, args.spp, args.depth)
     data, meta = world.compile()
     return data, meta, cam
 
 
+def override_camera(cam, width=None, spp=None, depth=None):
+    """``cam`` with the command line's overrides: the width (the height
+    keeps the aspect), samples per pixel (floored to a square) and the
+    bounce limit; None keeps the scene's."""
+    overrides = {}
+    if width is not None:
+        overrides["image_width"] = width
+        overrides["image_height"] = max(1, int(width * cam.image_height / cam.image_width))
+    if spp is not None:
+        overrides["sqrt_spp"] = max(1, int(math.sqrt(spp)))
+    if depth is not None:
+        overrides["bounce_limit"] = depth
+    return cam.replace(**overrides) if overrides else cam
+
+
 def _render(data, meta, cam, dev, seed):
     """One wavefront render on ``dev``, waited for; (image, stats, s)."""
+    from .device import synchronize
     from .render.wavefront import render_wavefront
 
     t0 = time.perf_counter()
     img, stats = render_wavefront(data, meta, cam, dev, seed=seed,
                                   return_stats=True)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    synchronize(dev)
     return img, stats, time.perf_counter() - t0
 
 
@@ -158,6 +164,14 @@ def main(argv=None):
         return cmd_bench(args)
     except ValueError as e:
         ap.error(str(e))
+
+
+def script() -> int:
+    """The ``mort-tpu-torch`` console script: ``main`` of the command line,
+    exit code 0 (``main`` returns its record, which ``sys.exit`` would
+    print as an error)."""
+    main()
+    return 0
 
 
 if __name__ == "__main__":

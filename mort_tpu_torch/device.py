@@ -40,3 +40,16 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return res.stdout.strip().splitlines()[0]
+
+
+def device_line(device: torch.device) -> str:
+    """``card_line()`` for a CUDA device, else the device type: the line
+    every timing record carries beside its numbers."""
+    return card_line() if device.type == "cuda" else device.type
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for ``device``'s queued work (a no-op on the CPU): every timed
+    window ends with it."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -21,6 +21,7 @@ import torch
 from .camera import Camera
 from .device import require_cuda
 from .render.renderer import to_u8_np
+from .render.vec import rotate_around
 from .render.wavefront import render_wavefront
 from .rng import DEFAULT_SEED
 
@@ -31,16 +32,11 @@ def _np(x) -> np.ndarray:
 
 
 def _rotate_around(vec, axis, theta):
-    """rotate_around (vec3.cuh:214-227) in numpy."""
-    vec = np.asarray(vec, np.float64)
-    axis = np.asarray(axis, np.float64)
-    a_par = (np.dot(vec, axis) / np.dot(axis, axis)) * axis
-    a_ort = vec - a_par
-    w = np.cross(axis, a_ort)
-    x1 = np.cos(theta) / np.linalg.norm(a_ort)
-    x2 = np.sin(theta) / np.linalg.norm(w)
-    a_rot = np.linalg.norm(a_ort) * (x1 * a_ort + x2 * w)
-    return (a_rot + a_par).astype(np.float32)
+    """``vec.rotate_around`` of two 3-vectors in float64 (the JAX
+    package's viewer rotates in numpy float64), as float32 numpy."""
+    vec, axis = (torch.as_tensor(np.asarray(a, np.float64))
+                 for a in (vec, axis))
+    return rotate_around(vec, axis, theta).numpy().astype(np.float32)
 
 
 class CameraController:

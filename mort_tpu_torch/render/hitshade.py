@@ -27,13 +27,13 @@ from .. import rng as rngm
 from . import primtable as pt
 from . import vec as v3
 from .vec import V3
-from .intersect import K_MEDIUM0, K_NONE, K_QUAD, K_SPHERE, QuadFrames
-from .shade import lights_pdf_value, lights_sample
+from .intersect import (
+    K_MEDIUM0, K_NONE, K_QUAD, K_SPHERE, UV_CLAMP, QuadFrames,
+)
+from .shade import INV_4PI, lights_pdf_value, lights_sample
 from .textures import texture_value
 
 PI = v3.PI
-INV_4PI = 1.0 / (4.0 * PI)
-UV_CLAMP = 1.0 - 2.0 ** -20   # arccos domain clamp (gradient safety)
 
 
 @dataclass

@@ -1,7 +1,8 @@
 """Batched ray-scene intersection: the port's reference intersector.
 
 The port of ``mort_tpu.render.intersect`` (``quad_frames``, ``sphere_pass``,
-``quad_pass``, ``media_pass``, ``intersect_best``).  The reference's
+``quad_pass``, ``media_pass``, ``intersect_best``, ``finalize_hit``,
+``intersect_world``).  The reference's
 sequential closest-hit loop over tagged registries (world.cuh:105-171)
 becomes a chunked min-reduction over [R, C] tensors.  The ray-primitive
 inner products are written as elementwise products, never
@@ -31,6 +32,7 @@ from .vec import safe_sqrt
 INF = float("inf")
 T_MIN = 1e-3          # world-level epsilon (camera.cuh:97)
 MEDIUM_EPS = 1e-4     # boundary re-hit epsilon (objects.cuh:404)
+UV_CLAMP = 1.0 - 2.0 ** -20   # arccos domain clamp (gradient safety)
 
 # best-hit kind codes
 K_NONE = 0
@@ -49,6 +51,19 @@ class QuadFrames:
     qa: torch.Tensor       # [Nq] Q . vxw
     qb: torch.Tensor       # [Nq] Q . wxu
     area: torch.Tensor     # [Nq] |cross(u,v)|
+
+
+@dataclass(frozen=True)
+class Hit:
+    """One closest hit a ray, with the winner's shading attributes."""
+    hit: torch.Tensor         # [R] bool
+    t: torch.Tensor           # [R] (1.0 on a miss)
+    p: torch.Tensor           # [R,3]
+    normal: torch.Tensor      # [R,3] front-face adjusted (hit_record.cuh:20-23)
+    front_face: torch.Tensor  # [R] bool
+    u: torch.Tensor           # [R]
+    v: torch.Tensor           # [R]
+    mat: torch.Tensor         # [R] int32 global material row
 
 
 def _dot3(a, b):
@@ -280,3 +295,93 @@ def intersect_best(data: SceneData, meta: SceneMeta, qf: QuadFrames,
     return media_pass(data, meta, qf, v3.V3.from_rows(ro),
                       v3.V3.from_rows(rd), seed, pixel, sample, bounce,
                       T_MIN, best_t, best_kind, best_idx)
+
+
+def finalize_hit(data: SceneData, meta: SceneMeta, qf: QuadFrames, ro, rd,
+                 time, best_t, best_kind, best_idx) -> Hit:
+    """Gather the winning primitive's shading attributes, one a ray, from
+    [R,3] rays and a closest hit (best_t, best_kind, best_idx)."""
+    hit = best_kind != K_NONE
+    t = torch.where(hit, best_t, 1.0)
+    p = ro + t[:, None] * rd
+
+    R = ro.shape[0]
+    normal = torch.zeros_like(ro)
+    normal[:, 0] = 1.0
+    front = torch.ones(R, dtype=torch.bool, device=ro.device)
+    uu = torch.zeros(R, dtype=torch.float32, device=ro.device)
+    vv = torch.zeros_like(uu)
+    mat = torch.zeros(R, dtype=torch.int32, device=ro.device)
+
+    if meta.n_spheres > 0:
+        i = torch.clamp(best_idx.long(), 0, data.sph_center.shape[0] - 1)
+        c = data.sph_center[i] + time[:, None] * data.sph_cvec[i]
+        r = data.sph_radius[i]
+        r_safe = torch.where(r != 0.0, r, 1.0)
+        outward = (p - c) / r_safe[:, None]
+        s_front = _dot3(rd, outward) < 0.0
+        s_normal = torch.where(s_front[:, None], outward, -outward)
+        # compute_uv (objects.cuh:101-108); the arccos argument is clamped
+        # one ulp inside (-1, 1) so that pole gradients stay finite
+        theta = torch.arccos(torch.clamp(-outward[:, 1], -UV_CLAMP,
+                                         UV_CLAMP))
+        phi = torch.atan2(-outward[:, 2], outward[:, 0]) + v3.PI
+        sel = best_kind == K_SPHERE
+        normal = torch.where(sel[:, None], s_normal, normal)
+        front = torch.where(sel, s_front, front)
+        uu = torch.where(sel, phi / (2.0 * v3.PI), uu)
+        vv = torch.where(sel, theta / v3.PI, vv)
+        mat = torch.where(sel, data.sph_mat[i].to(torch.int32), mat)
+
+    if meta.n_quads > 0:
+        i = torch.clamp(best_idx.long(), 0, data.quad_Q.shape[0] - 1)
+        nrm = qf.normal[i]
+        rel = p - data.quad_Q[i]
+        alpha = _dot3(rel, qf.vxw[i])
+        beta = _dot3(rel, qf.wxu[i])
+        q_front = _dot3(rd, nrm) < 0.0
+        q_normal = torch.where(q_front[:, None], nrm, -nrm)
+        sel = best_kind == K_QUAD
+        normal = torch.where(sel[:, None], q_normal, normal)
+        front = torch.where(sel, q_front, front)
+        uu = torch.where(sel, alpha, uu)
+        vv = torch.where(sel, beta, vv)
+        mat = torch.where(sel, data.quad_mat[i].to(torch.int32), mat)
+
+    x_axis = torch.tensor([1.0, 0.0, 0.0], device=ro.device)
+    for m, med in enumerate(meta.media):
+        # an arbitrary normal and front face (objects.cuh:428-429)
+        sel = best_kind == K_MEDIUM0 + m
+        normal = torch.where(sel[:, None], x_axis, normal)
+        front = torch.where(sel, True, front)
+        uu = torch.where(sel, 0.0, uu)
+        vv = torch.where(sel, 0.0, vv)
+        mat = torch.where(sel, med.mat_row, mat)
+
+    return Hit(hit=hit, t=t, p=p, normal=normal, front_face=front, u=uu,
+               v=vv, mat=mat)
+
+
+def intersect_world(data: SceneData, meta: SceneMeta, qf: QuadFrames,
+                    ro, rd, time, seed, pixel, sample, bounce,
+                    chunk=512) -> Hit:
+    """The whole world::hit (world.cuh:105-171) over [R,3] rays, unfused:
+    the closest hit (``closest_hit.closest_hit``: the CUDA kernel of the
+    auto accel on a card, its plain version on the CPU), the media draw
+    (``media_pass``) and the ``finalize_hit`` gather.  Earlier rows win
+    ties and a sphere beats a quad on an exact tie.  ``chunk`` is the JAX
+    signature's primitive chunk; the kernel has none, and it is unused."""
+    from . import closest_hit as ch
+    from .primtable import build_prim_table
+
+    table, _ = build_prim_table(data, meta, qf)
+    packed = ch.pack_scene(data, meta, qf, table,
+                           ch.auto_accel(meta.n_spheres + meta.n_quads))
+    ro_v, rd_v = v3.V3.from_rows(ro), v3.V3.from_rows(rd)
+    best_t, best_kind, best_idx, _ = ch.closest_hit(packed, ro_v, rd_v,
+                                                    time)
+    best_t, best_kind, best_idx = media_pass(
+        data, meta, qf, ro_v, rd_v, seed, pixel, sample, bounce, T_MIN,
+        best_t, best_kind, best_idx)
+    return finalize_hit(data, meta, qf, ro, rd, time, best_t, best_kind,
+                        best_idx)

@@ -20,6 +20,7 @@ from .vec import V3
 from .intersect import QuadFrames, T_MIN
 
 PI = v3.PI
+INV_4PI = 1.0 / (4.0 * PI)
 
 
 def _const3(a):

@@ -4,7 +4,7 @@ The port of ``mort_tpu.render.vec`` (semantics of the reference's vec3,
 vec3.cuh:13-227).  A dot product is two multiply-adds over [R] tensors,
 with no reduction, and every shading op is elementwise.  The JAX package's
 ``math3`` helpers that the intersector needs (``safe_sqrt``, ``PI``) live
-here too.
+here too, with ``rotate_around``, which acts on [..., 3] tensors.
 """
 
 from __future__ import annotations
@@ -181,3 +181,21 @@ def onb_local(u: V3, v: V3, w: V3, a: V3) -> V3:
               a.x * u.y + a.y * v.y + a.z * w.y,
               a.x * u.z + a.y * v.z + a.z * w.z)
 
+
+
+def rotate_around(vec, axis, theta):
+    """Rotate ``vec`` around ``axis`` by ``theta`` radians (rotate_around,
+    vec3.cuh:214-227; the viewer's mouse orbit).  [..., 3] tensors, in
+    their own dtype."""
+    def dot3(a, b):
+        return torch.sum(a * b, dim=-1)
+
+    theta = torch.as_tensor(theta, dtype=vec.dtype, device=vec.device)
+    a_par = (dot3(vec, axis) / dot3(axis, axis))[..., None] * axis
+    a_ort = vec - a_par
+    w = torch.linalg.cross(axis, a_ort)
+    len_ort = torch.sqrt(dot3(a_ort, a_ort))
+    x1 = torch.cos(theta) / len_ort
+    x2 = torch.sin(theta) / torch.sqrt(dot3(w, w))
+    a_rot = len_ort[..., None] * (x1[..., None] * a_ort + x2[..., None] * w)
+    return a_rot + a_par

@@ -217,7 +217,7 @@ def render_wavefront(data: SceneData, meta: SceneMeta, cam: Camera,
                      max_paths_per_call=200_000_000, fb=None,
                      task_range=None, scrub_nan=True, window=None, spt=None,
                      use_kernel=None, accel=None, mesh=None,
-                     layer_range=None, return_stats=False):
+                     layer_range=None, return_stats=False, chunk=512):
     """Wavefront render on ``device`` (None: the card, ``require_cuda``, or
     the mesh's device); returns linear [H,W,3] float32 (row 0 = bottom).
 
@@ -250,6 +250,11 @@ def render_wavefront(data: SceneData, meta: SceneMeta, cam: Camera,
     ``"bvh"`` (the JAX package's ``pallas_accel``); None picks
     ``closest_hit.auto_accel`` of the primitive count ("bvh" above 8192).
     Every mode gives the same closest hits.
+
+    ``chunk``: accepted for the JAX package's signature, whose XLA
+    intersector scans primitives in chunks of this size; the closest-hit
+    kernel has no such chunk, so it changes nothing (the image is bit-equal
+    for any value).
 
     ``return_stats``: return ``(img, stats)`` with ``iterations``,
     ``useful_segments`` and ``slots_executed``; with a mesh also

@@ -11,10 +11,15 @@ Torch's ``uint32`` has too few kernels to rely on, so the 32-bit words live
 in ``int64`` tensors holding values in [0, 2^32).  A plain int64 product of
 two u32 words can exceed 2^63, so ``mulhi``/``mullo`` are built from 16-bit
 limbs of the (constant) multiplier: every partial product stays below 2^49.
+
+``philox4x32_np``/``uniform4_np`` are the numpy mirror of the same stream
+(the JAX package's, used by oracles and fixtures that run without a
+device).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # Philox4x32 round constants.
@@ -95,3 +100,42 @@ def uniform4(seed, pixel, sample, bounce_plus1, slot):
     """
     r = philox4x32(pixel, sample, bounce_plus1, slot, seed, SEED2)
     return tuple(_bits_to_unit(w) for w in r)
+
+
+# -- numpy mirror ------------------------------------------------------------
+
+def _mulhilo_np(a, b):
+    """(hi, lo) u32 words of a * b in 16-bit limbs (numpy has no u64 mulhi
+    that wraps without overflow warnings)."""
+    a = np.asarray(a, np.uint32)
+    b = np.uint32(b)
+    with np.errstate(over="ignore"):
+        lo = a * b
+        ah, al = a >> np.uint32(16), a & np.uint32(0xFFFF)
+        bh, bl = b >> np.uint32(16), b & np.uint32(0xFFFF)
+        t = al * bl
+        u = ah * bl + (t >> np.uint32(16))
+        v = al * bh + (u & np.uint32(0xFFFF))
+        hi = ah * bh + (u >> np.uint32(16)) + (v >> np.uint32(16))
+    return hi, lo
+
+
+def philox4x32_np(c0, c1, c2, c3, k0, k1):
+    """``philox4x32`` in numpy: four uint32 arrays."""
+    c0, c1, c2, c3 = (np.asarray(c, np.uint32) for c in (c0, c1, c2, c3))
+    k0, k1 = np.uint32(k0), np.uint32(k1)
+    with np.errstate(over="ignore"):
+        for _ in range(PHILOX_ROUNDS):
+            hi0, lo0 = _mulhilo_np(c0, PHILOX_M0)
+            hi1, lo1 = _mulhilo_np(c2, PHILOX_M1)
+            c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+            k0 = np.uint32((int(k0) + PHILOX_W0) & _M32)
+            k1 = np.uint32((int(k1) + PHILOX_W1) & _M32)
+    return c0, c1, c2, c3
+
+
+def uniform4_np(seed, pixel, sample, bounce_plus1, slot):
+    """``uniform4`` in numpy: four float32 arrays in [0, 1)."""
+    r = philox4x32_np(pixel, sample, bounce_plus1, slot, seed, SEED2)
+    return tuple((w >> np.uint32(8)).astype(np.float32)
+                 * np.float32(1.0 / (1 << 24)) for w in r)

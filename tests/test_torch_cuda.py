@@ -683,3 +683,35 @@ def test_one_rank_nccl_mesh_on_card(dev, tmp_path):
         np.testing.assert_allclose(sharded, lock, rtol=0.0, atol=1e-5)
     finally:
         dist.destroy_process_group()
+
+
+def test_intersect_world_card_vs_cpu(dev):
+    """``intersect_world`` on scene 7 (two media): the kernel route on the
+    card against the plain route on the CPU — hit and material exact, t
+    and the gathered attributes within a few ulps (the CPU's float32 sqrt
+    is not correctly rounded)."""
+    from mort_tpu_torch.render.intersect import intersect_world
+
+    world, cam = sc.build_scene(7)
+    data, meta = world.compile()
+    g = np.random.RandomState(5)
+    R = 1 << 14
+    ro = np.repeat(cam.lookfrom.numpy()[None], R, 0).astype(np.float32)
+    ro[R // 2:] = g.uniform(50, 505, (R // 2, 3))
+    rd = g.uniform(0, 555, (R, 3)).astype(np.float32) - ro
+    args = [torch.from_numpy(x) for x in
+            (ro, rd, g.uniform(0, 1, R).astype(np.float32))]
+    pix = torch.from_numpy(g.randint(0, 600 * 600, R))
+    smp = torch.from_numpy(g.randint(0, 64, R))
+    want = intersect_world(data, meta, quad_frames(data), *args, 69420, pix,
+                           smp, 2)
+    dd = data.to(dev)
+    got = intersect_world(dd, meta, quad_frames(dd),
+                          *(a.to(dev) for a in args), 69420, pix.to(dev),
+                          smp.to(dev), 2)
+    assert torch.equal(got.hit.cpu(), want.hit)
+    assert torch.equal(got.mat.cpu(), want.mat)
+    for name in ("t", "p", "normal", "u", "v"):
+        torch.testing.assert_close(getattr(got, name).cpu(),
+                                   getattr(want, name), rtol=4e-6,
+                                   atol=4e-6 * 555, msg=name)

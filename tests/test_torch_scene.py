@@ -122,6 +122,11 @@ def test_port_imports_without_jax():
         "import mort_tpu_torch.render.progressive\n"
         "import mort_tpu_torch.io.image, mort_tpu_torch.metrics\n"
         "import mort_tpu_torch.cli, mort_tpu_torch.interactive\n"
+        "import mort_tpu_torch.parity, mort_tpu_torch.config5\n"
+        "import mort_tpu_torch.bench, mort_tpu_torch.tune_wavefront\n"
+        "import mort_tpu_torch.profile_wavefront\n"
+        "import mort_tpu_torch.profile_train_step\n"
+        "import mort_tpu_torch.parallel.launch\n"
         "bad =[m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'mort_tpu')]\n"
         "assert not bad, bad\n"

@@ -22,7 +22,6 @@ import dataclasses
 import datetime
 import os
 import socket
-import subprocess
 import sys
 from collections import Counter
 
@@ -35,6 +34,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from mort_tpu_torch import World, make_camera  # noqa: E402
+from mort_tpu_torch.parallel.launch import run_ranks  # noqa: E402
 from mort_tpu_torch.parallel.sharding import (  # noqa: E402
     _DIFF_FIELDS, make_mesh, make_train_step, render_sharded,
 )
@@ -223,24 +223,11 @@ def _run_world(n, out, inputs):
     """Start the n ranks of one world and wait for them; a rank that fails
     or outlives WORKER_TIMEOUT_S fails the test."""
     store = out / f"store{n}"
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--rank", str(r),
-         "--world", str(n), "--store", str(store), "--out", str(out),
-         "--inputs", str(inputs)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(n)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=WORKER_TIMEOUT_S)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait(timeout=30)
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"world {n} rank {r}: rc {p.returncode}\n" \
-            f"{log}"
+    run_ranks(
+        [[sys.executable, os.path.abspath(__file__), "--rank", r, "--world",
+          n, "--store", store, "--out", out, "--inputs", inputs]
+         for r in range(n)],
+        [out / f"world{n}_rank{r}.log" for r in range(n)], WORKER_TIMEOUT_S)
     return [dict(np.load(out / f"world{n}_rank{r}.npz", allow_pickle=False))
             for r in range(n)]
 
