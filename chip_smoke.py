@@ -115,10 +115,26 @@ Phases, one line each or more (any failure raises and exits non-zero):
    depth 8; launch counts reset just before and read just after;
 20. the bench entry (``mort_tpu_torch.bench``): scene 5's record (2
    frames) and the ``--grad`` record, each summary line checked for
-   bench.py's four keys.
+   bench.py's four keys;
+21. the spans' CUDA graphs: every wavefront render above (phases 5-8,
+   13, 14, 16, 17, 19) ran each span's rounds after the first as replays
+   of one captured graph (``render_wavefront``'s only route on a card;
+   each main path's replay count is printed and checked); here against
+   the eager rounds (``_span_core``'s private ``eager``): (a) scene 9 at
+   100x100, 16 spp through "none", "bvh" and "cull", spread16k at 160x90
+   and progressive scene 6 at 48x48, over layer-aligned spans, images
+   bit-equal as raw int32, rounds, useful segments, slots and launches
+   equal; (b) scene 1 at its bench config and scene 9 at 400x400 with spp
+   cut to 16, in the order graph, eager, graph: wall, peak memory,
+   host syncs, capture seconds, the same stats and launches, the images by
+   the image rule; then each route's frame once more under
+   ``torch.profiler``: its idle share and kernels a bounce step.
 
-Files go to build/chip_smoke/ (git-ignored).  The last lines are a JSON
-record of phases 18-20 (``{"tools": ...}``), a JSON record of phase 17 (``{"sharding": ...}``: walls, launches, collectives,
+Every phase prints its seconds.  Files go to build/chip_smoke/
+(git-ignored).  The last lines are a JSON record of phase 21
+(``{"span_graph": ...}``), a JSON record of phases 18-20
+(``{"tools": ...}``), a JSON record of phase 17 (``{"sharding": ...}``:
+walls, launches, collectives,
 bit-equal flags), a JSON record of the numerics (``{"precision": ...}``:
 TF32 off, each kernel's largest error, rows bit-equal on hit lanes), a
 JSON record of the kernels (launches on the paths above, the largest error
@@ -133,6 +149,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import datetime
 import io
 import json
@@ -162,6 +179,7 @@ from mort_tpu_torch.profile_wavefront import (  # noqa: E402
 )
 from mort_tpu_torch.camera import derive_basis, get_rays_soa  # noqa: E402
 from mort_tpu_torch.render import closest_hit as ch  # noqa: E402
+from mort_tpu_torch.render import wavefront as wf  # noqa: E402
 from mort_tpu_torch.render.hitshade import finalize_and_shade  # noqa: E402
 from mort_tpu_torch.render.intersect import (  # noqa: E402
     K_QUAD, K_SPHERE, T_MIN, media_pass, quad_frames,
@@ -329,15 +347,33 @@ def sass_mix(name, kernel="closest_hit_none_kernel<false"):
     return mix
 
 
+# the spans' graph counts (wavefront.graph_count) at the last reset_counts
+_GRAPH_BASE = dict(wf.graph_count)
+# the graph counts of each main path, by name, for phase 21's record
+GRAPHS = {}
+
+
 def reset_counts():
     torch.cuda.synchronize()
     for mode in ch.launch_count:
         ch.launch_count[mode] = 0
+    _GRAPH_BASE.update(wf.graph_count)
 
 
 def read_counts():
     torch.cuda.synchronize()
     return dict(ch.launch_count)
+
+
+def read_graphs(name=None):
+    """The spans' graph counts since the last ``reset_counts``: spans,
+    rounds, captures, replays, host syncs and capture seconds; kept in
+    GRAPHS under ``name``."""
+    moved = {k: wf.graph_count[k] - _GRAPH_BASE[k] for k in _GRAPH_BASE}
+    moved["capture_s"] = round(moved["capture_s"], 4)
+    if name is not None:
+        GRAPHS[name] = moved
+    return moved
 
 
 class Scene:
@@ -1316,7 +1352,10 @@ def main_path(name, world, cam, dev, card, accel=None, profiled=False,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
+    graphs = read_graphs(name)
     assert sum(counts.values()) > 0, f"{name}: the kernel never launched"
+    assert graphs["replays"] == stats["iterations"] - graphs["spans"], \
+        f"{name}: a round after a span's first was not a replay: {graphs}"
     assert img.shape == (cam.image_height, cam.image_width, 3)
     assert bool(torch.isfinite(img).all()), "non-finite pixels"
     mean = float(img.mean())
@@ -1326,8 +1365,8 @@ def main_path(name, world, cam, dev, card, accel=None, profiled=False,
         f"depth {cam.bounce_limit}: wall {wall:.3f} s, "
         f"{n_paths / wall:.1f} paths/s, {segs / wall:.1f} segments/s, "
         f"occupancy {segs / stats['slots_executed']:.4f}, "
-        f"{stats['iterations']} rounds, kernel launches {counts}, "
-        f"image mean {mean:.5f} | {card}")
+        f"{stats['iterations']} rounds, kernel launches {counts}, span "
+        f"graphs {graphs}, image mean {mean:.5f} | {card}")
     if profiled:
         kw, what, p_wall = {}, "frame", wall
         if profile_tasks is not None:
@@ -1345,6 +1384,16 @@ def main_path(name, world, cam, dev, card, accel=None, profiled=False,
             torch.cuda.synchronize()
         _, busy_us, n_launch, modes = device_times(prof)
         assert busy_us > 0, f"{name}: the profiler saw no device time"
+        if profile_tasks is None:
+            # device_times's one pass over the raw events against the
+            # profiler's own table, on this frame's few ten thousand
+            # kernels (the table takes ~0.1 ms an event)
+            busy_k, n_k = key_average_times(prof)
+            assert n_k == n_launch and abs(busy_k - busy_us) <= 1e-6 * \
+                busy_us, (busy_k, n_k, busy_us, n_launch)
+            log(f"main path {name}: device_times {busy_us:.1f} us over "
+                f"{n_launch} kernels, key_averages {busy_k:.1f} us over "
+                f"{n_k}")
         log(f"main path {name} profiled ({what}): device busy "
             f"{busy_us / 1e6:.4f} s (idle share "
             f"{1 - busy_us / 1e6 / p_wall:.4f} of the unprofiled wall "
@@ -1354,6 +1403,13 @@ def main_path(name, world, cam, dev, card, accel=None, profiled=False,
                 for m, us in modes.items() if us)
             + f" | {card}")
     return counts, img, wall
+
+
+def key_average_times(prof):
+    """(busy us, launches) of a profiled window by ``key_averages()``."""
+    rows = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+    return sum(_device_us(e) for e in rows), sum(e.count for e in rows)
 
 
 def out_dir():
@@ -1385,6 +1441,8 @@ def cli_main_path(dev, card, aaq):
     reset_counts()
     rec = cli.main(["render", "5", "--out", png])
     counts = read_counts()
+    graphs = read_graphs("cli render 5")
+    assert graphs["replays"] > 0, f"cli render: no graph replay {graphs}"
     assert counts["none"] > 0, "cli render: the none kernel never launched"
     assert (rec["width"], rec["height"], rec["spp"], rec["bounce_limit"]) \
         == (W, H, cam.sqrt_spp ** 2, cam.bounce_limit), rec
@@ -1408,8 +1466,9 @@ def cli_main_path(dev, card, aaq):
         f"{rec['bounce_limit']} (in-process): "
         f"wall {rec['wall_s']:.3f} s, {rec['paths_per_s']:.1f} paths/s, "
         f"{rec['ray_segments_per_s']:.1f} segments/s, none launches "
-        f"{counts['none']}; on phase 4's scene5 rays {n_a / R:.2f} "
-        f"axis-aligned and {n_q / R:.2f} general quad tests a ray; PNG "
+        f"{counts['none']}, span graphs {graphs}; on phase 4's scene5 rays "
+        f"{n_a / R:.2f} axis-aligned and {n_q / R:.2f} general quad tests a "
+        f"ray; PNG "
         f"read back {u8.shape}, mean {u8.mean():.2f} | {card}")
     log(f"cli subprocess: rc 0 in {sub_s:.2f} s; "
         + " | ".join(res.stderr.strip().splitlines()) + f"; NPZ vs "
@@ -1448,7 +1507,10 @@ def progressive_main_path(dev, card):
         on_step=lambda st: steps.append(time.perf_counter()))
     wall = time.perf_counter() - t0
     counts = read_counts()
+    graphs = read_graphs("progressive scene6")
     assert counts["none"] > 0, "progressive: the none kernel never launched"
+    assert graphs["captures"] == graphs["spans"] and graphs["replays"] > 0, \
+        f"progressive: {graphs}"
     assert full.samples_done == spp and len(steps) == n_layers
     assert np.isfinite(full.fb).all() and 0.01 < float(full.fb.mean()) < 2
 
@@ -1479,8 +1541,9 @@ def progressive_main_path(dev, card):
         f"@ {spp}spp (cut from {own_spp}) depth {cam.bounce_limit}, spt "
         f"{PROG_SPT}: {wall:.3f} s, s a layer "
         f"{', '.join(f'{x:.3f}' for x in per_layer)}, "
-        f"{n_paths / wall:.1f} paths/s, none launches {counts['none']}; "
-        f"interrupted after 2 layers, resumed from the checkpoint: "
+        f"{n_paths / wall:.1f} paths/s, none launches {counts['none']}, "
+        f"span graphs {graphs}; interrupted after 2 layers, resumed from "
+        f"the checkpoint: "
         f"bit-equal | {card}")
     return counts
 
@@ -1732,7 +1795,9 @@ def sharded_paths(dev, card, scene1_img, scene1_wall, step_wall):
         torch.cuda.synchronize()
         mesh_wall = time.perf_counter() - t0
         counts = read_counts()
+        graphs = read_graphs("scene1 1-rank mesh")
         assert counts["none"] > 0, "1-rank mesh: the none kernel never ran"
+        assert graphs["replays"] > 0, f"1-rank mesh: no replay {graphs}"
         assert bool(torch.isfinite(img).all()), "non-finite pixels"
         frac, mdiff = assert_images_close(img.cpu().numpy(), scene1_img)
         log(f"main path scene1 1-rank NCCL mesh {cam1.image_width}x"
@@ -1740,7 +1805,8 @@ def sharded_paths(dev, card, scene1_img, scene1_wall, step_wall):
             f"{mesh_wall:.3f} s ({n_paths / mesh_wall:.1f} paths/s, "
             f"{stats['iterations']} rounds in one layer-aligned span a "
             f"layer) beside phase 5's {scene1_wall:.3f} s; none launches "
-            f"{counts['none']}; collectives {stats['collectives']}; against "
+            f"{counts['none']}; span graphs {graphs}; collectives "
+            f"{stats['collectives']}; against "
             f"phase 5's image frac_within={frac:.5f}, mean_abs={mdiff:.3e} "
             f"| {card}")
         assert stats["collectives"] == {"spans": 0, "gather": 1, "stats": 1}
@@ -2023,6 +2089,189 @@ def tool_phases(dev, card, t_start):
     return out
 
 
+@contextlib.contextmanager
+def eager_spans(eager=True):
+    """With ``eager``, every span's rounds run eagerly on the card
+    (``_span_core``'s private ``eager``), to compare with the graph
+    route."""
+    core = wf._span_core
+    if eager:
+        wf._span_core = functools.partial(core, eager=True)
+    try:
+        yield
+    finally:
+        wf._span_core = core
+
+
+def on_route(fn, eager):
+    """``fn()`` on the graph route or the eager one: its result, the
+    closest-hit launches and span graph counts it added, its wall seconds
+    and its peak device memory (bytes)."""
+    with eager_spans(eager):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return (res, read_counts(), read_graphs(), wall,
+                torch.cuda.max_memory_allocated())
+
+
+def routes_bit_equal(dev):
+    """Phase 21 (a): each config through both routes over layer-aligned
+    spans: the images bit-equal (raw int32 views), rounds, useful
+    segments, slots and launches equal, every round after a span's first a
+    replay on the graph route and none on the eager one."""
+    from mort_tpu_torch.render.progressive import (
+        render_progressive_wavefront,
+    )
+
+    world9, cam9 = sc.final_scene(400, 250, 4)
+    data9, meta9 = world9.compile()
+    cam9 = cam9.replace(image_width=100, image_height=100, sqrt_spp=4)
+    world16, cam16 = sc.spread_spheres()
+    data16, meta16 = world16.compile()
+    cam16 = cam16.replace(image_width=160, image_height=90, sqrt_spp=2,
+                          bounce_limit=4)
+    world6, cam6 = sc.build_scene(6)
+    data6, meta6 = world6.compile()
+    cam6 = cam6.replace(image_width=48, image_height=48, sqrt_spp=3,
+                        bounce_limit=8)
+
+    def wave(data, meta, cam, layers, accel=None):
+        return lambda: render_wavefront(data, meta, cam, dev, seed=SEED,
+                                        accel=accel, layer_range=layers,
+                                        return_stats=True)
+
+    def progressive():
+        st = render_progressive_wavefront(data6, meta6, cam6, seed=SEED,
+                                          spt=3, device=dev)
+        return torch.from_numpy(st.fb), {}
+
+    cases = [(f"scene9 100x100 16spp {m}", wave(data9, meta9, cam9, (0, 2),
+                                                m), m) for m in ch.ACCELS]
+    cases += [("spread16k 160x90 4spp depth 4",
+               wave(data16, meta16, cam16, (0, 1)), "bvh"),
+              ("progressive scene6 48x48 9spp spt 3", progressive, "none")]
+    out = {}
+    for name, fn, mode in cases:
+        (g_img, g_stats), g_l, g_g, _, _ = on_route(fn, False)
+        (e_img, e_stats), e_l, e_g, _, _ = on_route(fn, True)
+        equal = bool(torch.equal(g_img.view(torch.int32),
+                                 e_img.view(torch.int32)))
+        log(f"routes {name}: graph vs eager bit-equal {equal}; stats "
+            f"{g_stats}; launches {g_l}; graph route {g_g}; eager route "
+            f"rounds {e_g['rounds']}, replays {e_g['replays']}")
+        assert equal, f"phase 21: {name}: the routes' images differ"
+        assert g_stats == e_stats and g_l == e_l and g_l[mode] > 0, name
+        assert g_g["rounds"] == e_g["rounds"] and e_g["replays"] == 0, name
+        assert g_g["captures"] == g_g["spans"], name
+        assert g_g["replays"] == g_g["rounds"] - g_g["spans"] > 0, name
+        out[name] = {"bit_equal": equal, "launches": g_l[mode],
+                     "rounds": g_g["rounds"], "replays": g_g["replays"],
+                     "captures": g_g["captures"]}
+    return out
+
+
+def routes_frame(name, world, cam, dev, card):
+    """Phase 21 (b): one config's frame on both routes in the order graph,
+    eager, graph (the eager route, ~4-7x slower, once, between the other's
+    two runs), with the wall, peak memory, rounds, host syncs and capture seconds of
+    each; the same rounds, useful segments and launches on every run, the
+    images by the image rule (over default spans index_add_'s atomic order
+    may differ); then the frame once more on each route under
+    ``torch.profiler``: the device's busy seconds, its idle share of the
+    route's mean unprofiled wall and the kernels a bounce step."""
+    data, meta = world.compile()
+
+    def frame():
+        return render_wavefront(data, meta, cam, dev, seed=SEED,
+                                return_stats=True)
+
+    runs = {False: [], True: []}
+    for eager in (False, True, False):
+        (img, stats), launches, graphs, wall, peak = on_route(frame, eager)
+        runs[eager].append((img, stats, launches, graphs, wall, peak))
+        log(f"routes {name} {cam.image_width}x{cam.image_height} @ "
+            f"{cam.sqrt_spp ** 2}spp depth {cam.bounce_limit}, "
+            f"{'eager' if eager else 'graph'}: wall {wall:.3f} s, peak "
+            f"memory {peak / 2 ** 30:.4f} GiB, {stats['iterations']} rounds, "
+            f"launches {launches}, span graphs {graphs} | {card}")
+    first = runs[True][0]
+    for img, stats, launches, _, _, _ in runs[False]:
+        assert stats == first[1] and launches == first[2], name
+    frac, mdiff = assert_images_close(runs[False][0][0].cpu().numpy(),
+                                      first[0].cpu().numpy())
+    rec = {"config": f"{cam.image_width}x{cam.image_height} "
+                     f"{cam.sqrt_spp ** 2}spp depth {cam.bounce_limit}",
+           "rounds": first[1]["iterations"]}
+    for eager, key in ((False, "graph"), (True, "eager")):
+        walls = [r[4] for r in runs[eager]]
+        rec[key] = {
+            "wall_s": walls, "peak_gib": max(r[5] for r in runs[eager])
+            / 2 ** 30, "host_syncs": runs[eager][0][3]["syncs"],
+            "captures": runs[eager][0][3]["captures"],
+            "replays": runs[eager][0][3]["replays"],
+            "capture_s": [r[3]["capture_s"] for r in runs[eager]]}
+    del runs
+    for eager, key in ((False, "graph"), (True, "eager")):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            _, launches, _, p_wall, _ = on_route(frame, eager)
+        t0 = time.perf_counter()
+        _, busy_us, n_kernels, _ = device_times(prof)
+        summarise = time.perf_counter() - t0
+        del prof
+        assert busy_us > 0, f"{name} {key}: the profiler saw no device time"
+        steps = sum(launches.values())
+        wall = statistics.mean(rec[key]["wall_s"])
+        rec[key].update(busy_s=busy_us / 1e6,
+                        idle_share=1 - busy_us / 1e6 / wall,
+                        kernels=n_kernels, kernels_per_step=n_kernels / steps)
+        log(f"routes {name} profiled frame, {key}: device busy "
+            f"{busy_us / 1e6:.4f} s, idle share {1 - busy_us / 1e6 / wall:.4f}"
+            f" of the mean unprofiled wall {wall:.3f} s (profiled "
+            f"{p_wall:.3f} s), {n_kernels} device kernels = "
+            f"{n_kernels / steps:.1f} a bounce step ({steps} steps); "
+            f"summarised in {summarise:.1f} s | {card}")
+    g, e = rec["graph"], rec["eager"]
+    log(f"routes {name}: mean wall graph "
+        f"{statistics.mean(g['wall_s']):.3f} s, eager "
+        f"{statistics.mean(e['wall_s']):.3f} s; idle share graph "
+        f"{g['idle_share']:.4f}, eager {e['idle_share']:.4f}; peak memory "
+        f"graph {g['peak_gib']:.4f} GiB, eager {e['peak_gib']:.4f} GiB; "
+        f"capture {', '.join(f'{c:.4f}' for c in g['capture_s'])} s; host "
+        f"syncs a frame graph {g['host_syncs']}, eager {e['host_syncs']}; "
+        f"graph vs eager image frac_within={frac:.5f}, mean_abs={mdiff:.3e}"
+        f" | {card}")
+    return rec
+
+
+def span_graph_phase(dev, card):
+    """Phase 21: the spans' CUDA graphs against the eager rounds.  Returns
+    the ``{"span_graph": ...}`` record: (a) the bit-equality set, (b)
+    scene 1 at its bench config and scene 9 at 400x400, 16 spp, and the
+    graph counts of the main paths of phases 5-19."""
+    t0 = time.perf_counter()
+    rec = {"bit_equal": routes_bit_equal(dev)}
+    log(f"phase 21 (a) took {time.perf_counter() - t0:.1f} s")
+    world1, cam1 = sc.random_spheres()
+    t0 = time.perf_counter()
+    rec["scene1"] = routes_frame("scene1", world1, cam1, dev, card)
+    log(f"phase 21 (b) scene1 took {time.perf_counter() - t0:.1f} s")
+    world9, cam9 = sc.final_scene(400, 250, 4)
+    t0 = time.perf_counter()
+    rec["scene9 16spp"] = routes_frame("scene9 16spp", world9,
+                                       cam9.replace(sqrt_spp=4), dev, card)
+    log(f"phase 21 (b) scene9 16spp took {time.perf_counter() - t0:.1f} s")
+    rec["main_paths"] = dict(GRAPHS)
+    for name, g in GRAPHS.items():
+        log(f"span graphs of the main path {name}: {g}")
+    return rec
+
+
 def precision_record(kern, rows_hits):
     """The card counterpart of tools/mosaic_check.py: TF32 off for matmuls
     and cuDNN, float32 matmul precision "highest", every kernel's largest
@@ -2053,8 +2302,16 @@ def precision_record(kern, rows_hits):
     return rec
 
 
+def phase_done(n, t_phase, t_start):
+    """Logs phase ``n``'s seconds; returns the clock for the next phase."""
+    now = time.perf_counter()
+    log(f"phase {n} took {now - t_phase:.1f} s, done at "
+        f"{now - t_start:.1f} s")
+    return now
+
+
 def main():
-    t_start = time.perf_counter()
+    t_start = t_phase = time.perf_counter()
     # ---- 1. card ----
     dev = require_cuda()
     card = card_line()
@@ -2065,6 +2322,7 @@ def main():
     log(f"card: {torch.cuda.get_device_name(dev)} | nvidia-smi: {card} | "
         f"SM clock, max SM clock: {clocks} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | devices {torch.cuda.device_count()}")
+    t_phase = phase_done(1, t_phase, t_start)
 
     # ---- 2. build ----
     t0 = time.perf_counter()
@@ -2089,6 +2347,7 @@ def main():
         for (label, part), counts in sass_mix("closest_hit", kernel).items():
             log(f"sass {label} {part}: " + ", ".join(
                 f"{k} {v}" for k, v in counts.items() if v))
+    t_phase = phase_done(2, t_phase, t_start)
 
     # ---- 3. philox ----
     u = rng.uniform4(SEED, torch.tensor([123], device=dev),
@@ -2098,10 +2357,11 @@ def main():
             0.48183852434158325, 0.6557576656341553]
     assert got == want, f"philox on the card: {got} != {want}"
     log(f"philox: pinned vector reproduced bit for bit on {dev}")
+    t_phase = phase_done(3, t_phase, t_start)
 
     # ---- 4. every mode vs the plain version, and timings ----
     kern, sets = parity_and_timing(dev, card)
-    log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
+    t_phase = phase_done(4, t_phase, t_start)
 
     # ---- 5. main path: scene 1 at its bench config ----
     world1, cam1 = sc.random_spheres()
@@ -2117,11 +2377,13 @@ def main():
         f"{small.image_width}x{small.image_height} @ {small.sqrt_spp ** 2}spp"
         f" depth {small.bounce_limit}: frac_within={frac:.5f}, "
         f"mean_abs={mdiff:.3e}")
+    t_phase = phase_done(5, t_phase, t_start)
 
     # ---- 6. main path: scene 9 at its code-true config ----
     world9, cam9 = sc.final_scene(400, 250, 4)
     counts9 = main_path("scene9", world9, cam9, dev, card)[0]
     assert counts9["none"] > 0, "scene 9's auto accel should be none"
+    t_phase = phase_done(6, t_phase, t_start)
 
     # ---- 7. scene 9 four ways: none, bvh, cull kernels and plain ----
     data9, meta9 = world9.compile()
@@ -2140,6 +2402,7 @@ def main():
         log(f"scene9 100x100 @ 16spp depth 4, {mode} kernel "
             f"({four_counts[mode]} launches) vs plain: frac_within="
             f"{frac:.5f}, mean_abs={mdiff:.3e}")
+    t_phase = phase_done(7, t_phase, t_start)
 
     # ---- 8. every scene on the card, and the 16k-sphere scene ----
     for idx in (2, 3, 4, 5, 6, 7, 8, 10):
@@ -2167,32 +2430,36 @@ def main():
     log(f"spread16k 160x90 @ 4spp depth 4, auto accel: bvh kernel "
         f"({counts16['bvh']} launches) vs plain frac_within={frac:.5f}, "
         f"mean_abs={mdiff:.3e}")
+    t_phase = phase_done(8, t_phase, t_start)
 
     # ---- 9. the backward kernel vs its plain version, and timings ----
     kern["bwd"] = backward_parity_and_timing(dev, card, sets)
     del sets
-    log(f"phase 9 done at {time.perf_counter() - t_start:.1f} s")
+    t_phase = phase_done(9, t_phase, t_start)
 
     # ---- 10. main path: the scene-1 train step ----
     counts10, wall10 = train_step_main_path(dev, card)
-    log(f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
+    t_phase = phase_done(10, t_phase, t_start)
 
     # ---- 11. the lockstep render on the card ----
     lockstep_render(dev)
+    t_phase = phase_done(11, t_phase, t_start)
 
     # ---- 12. the Cornell train step, card against CPU ----
     train_step_card_vs_cpu(dev)
+    t_phase = phase_done(12, t_phase, t_start)
 
     # ---- 13. main path: the CLI, scene 5 at its code-true config ----
     counts13 = cli_main_path(dev, card, kern["aaq"])
-    log(f"phase 13 done at {time.perf_counter() - t_start:.1f} s")
+    t_phase = phase_done(13, t_phase, t_start)
 
     # ---- 14. main path: progressive checkpoint/resume, scene 6 ----
     counts14 = progressive_main_path(dev, card)
+    t_phase = phase_done(14, t_phase, t_start)
 
     # ---- 15. the viewer ----
     viewer_path(dev)
-    log(f"phase 15 done at {time.perf_counter() - t_start:.1f} s")
+    t_phase = phase_done(15, t_phase, t_start)
 
     # ---- 16. main path, forced "cull": scene 9 at 400x400, 16 spp ----
     cam9c = cam9.replace(sqrt_spp=4)
@@ -2229,15 +2496,19 @@ def main():
     assert all(torch.equal(img, imgs[0]) for img in imgs[1:]), \
         "phase 16: the none and cull renders differ"
     del runs, imgs
-    log(f"phase 16 done at {time.perf_counter() - t_start:.1f} s")
+    t_phase = phase_done(16, t_phase, t_start)
 
     # ---- 17. the sharded paths and the host BVH builder ----
     sharding = sharded_paths(dev, card, img1, wall1, wall10)
-    log(f"phase 17 took {sharding['seconds']:.1f} s, done at "
-        f"{time.perf_counter() - t_start:.1f} s")
+    t_phase = phase_done(17, t_phase, t_start)
 
     # ---- 18-20. the parity gate, config #5 and the bench entry ----
     tools = tool_phases(dev, card, t_start)
+    t_phase = time.perf_counter()
+
+    # ---- 21. the spans' CUDA graphs against the eager rounds ----
+    span_graph = span_graph_phase(dev, card)
+    phase_done(21, t_phase, t_start)
 
     launches = {"none": counts9["none"], "bvh": counts16m["bvh"],
                 "cull": counts9c["cull"], "bwd": counts10["bwd"],
@@ -2257,6 +2528,7 @@ def main():
         f"{json.dumps(tools['config5_launches'])}, bench scene 5 and --grad "
         f"{json.dumps(tools['bench_launches'])}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"span_graph": span_graph}))
     log(json.dumps({"tools": tools}))
     log(json.dumps({"sharding": sharding}))
     rows_hits = kern.pop("rows_hits")

@@ -9,23 +9,30 @@ Renders a reference scene at its code-true config (scene 1, the default:
 "bvh"), over the first ``--tasks`` chunk-tasks (tasks past a frame's last
 are further sample chunks: spread16k's frame is 90,000 tasks), after a
 warm-up span: once plainly for the wall time, then once under
-``torch.profiler`` (CPU + CUDA).  Prints the device time by kernel, the
+``torch.profiler`` (CPU + CUDA).  The spans run as ``render_wavefront``
+runs them on a card: each span's first round eagerly, every later round as
+one replay of a captured CUDA graph (the profiler attributes the kernels of
+a replay like eager ones).  Prints the device time by kernel, the
 closest-hit kernel's share of it by accel mode, the device's busy and idle
-shares of the unprofiled wall time, and device kernels per bounce step,
-beside the card's name and power limit.  Needs a CUDA card.
+shares of the unprofiled wall time, device kernels per bounce step, host
+syncs, graphs captured and replayed, capture seconds and peak device
+memory, beside the card's name and power limit.  Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from . import require_cuda
 from .device import card_line
 from .render import closest_hit as ch
+from .render import wavefront as wf
 from .render.wavefront import render_wavefront
 from .scene import scenes as sc
 
@@ -37,11 +44,30 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+@dataclasses.dataclass
+class DeviceKernel:
+    """One kernel name's device time (us) and launches in a window, with
+    the names of ``key_averages()``'s rows (``_device_us`` reads both)."""
+    key: str
+    count: int = 0
+    self_device_time_total: float = 0.0
+
+
 def device_times(prof):
     """(device kernels, busy us, launches, closest-hit us by accel mode)
-    of a finished ``torch.profiler`` window."""
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
+    of a finished ``torch.profiler`` window, summed over its raw device
+    events in one pass: ``key_averages()`` spends ~0.1 ms an event, minutes
+    for a frame's ~10^6 kernels, this a few seconds."""
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        k = by_name.get(e.name())
+        if k is None:
+            k = by_name[e.name()] = DeviceKernel(e.name())
+        k.count += 1
+        k.self_device_time_total += e.duration_ns() / 1e3
+    kernels = list(by_name.values())
     modes = {m: sum(_device_us(e) for e in kernels
                     if f"closest_hit_{m}_" in e.key)
              for m in ch.ACCELS}
@@ -73,13 +99,17 @@ def main(argv=None):
     render_wavefront(data, meta, cam, dev, seed=1, task_range=(0, 4096))
 
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for mode in ch.launch_count:
         ch.launch_count[mode] = 0
+    before = dict(wf.graph_count)
     t0 = time.perf_counter()
     _, stats = render_wavefront(data, meta, cam, dev, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     steps = sum(ch.launch_count.values())
+    graphs = {k: wf.graph_count[k] - n for k, n in before.items()}
+    peak = torch.cuda.max_memory_allocated()
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -94,6 +124,10 @@ def main(argv=None):
           f"unprofiled, {stats['iterations']} rounds, {steps} bounce steps, "
           f"occupancy {stats['useful_segments'] / stats['slots_executed']:.4f}"
           f" | {card}")
+    print(f"span graphs: {graphs['spans']} spans, {graphs['captures']} "
+          f"captured in {graphs['capture_s']:.4f} s, {graphs['replays']} of "
+          f"{graphs['rounds']} rounds replayed; {graphs['syncs']} host syncs; "
+          f"peak device memory {peak / 2 ** 30:.4f} GiB")
     print(f"device busy {busy_us / 1e6:.4f} s = "
           f"{busy_us / 1e6 / wall:.4f} of the unprofiled wall "
           f"(idle share {1 - busy_us / 1e6 / wall:.4f}); "

@@ -15,9 +15,14 @@ finished chunk:
 
 The counter-based RNG keys draws by (pixel, sample, bounce, slot), so the
 per-sample radiance is the JAX package's; only the accumulation order
-differs.  ``jax.lax.while_loop``/``fori_loop`` become Python loops: the
-loop condition is read on the host once per round (one device sync), and
-the deposit selects its lanes with a mask (another).
+differs.  ``jax.lax.while_loop``/``fori_loop`` become Python loops whose
+condition is read on the host once a round (one device sync).  On a card
+a span is one captured device program, the counterpart of
+``jax.jit(_wavefront_span)``: its first round runs eagerly, the next is
+captured into a CUDA graph, and every later round is one replay
+(``_span_core``).  The deposit has a fixed shape, as JAX's drop-mode
+scatter: a lane that does not deposit adds into a drop row of its own
+past the image (``_deposit``).
 
 Every reference scene renders: constant media are sampled after the closest
 hit (``media_pass``), lights through the mixture pdf and fallback
@@ -40,6 +45,8 @@ pixel from one rank) gathers the image on every rank.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -56,19 +63,42 @@ from .primtable import build_prim_table
 from .vec import V3
 
 
-def _span_core(data: SceneData, meta: SceneMeta, cam: Camera, seed: int,
-               fb: torch.Tensor, task_start: int, task_end: int, *,
-               pool: int, window: int, spt: int, use_kernel: bool,
-               accel: str, no_defocus: bool, per: int, n_shards: int,
-               shard_id: int):
-    """Run the wavefront over local chunk-tasks [task_start, task_end),
-    accumulating into ``fb`` [per, 3] in place.  Returns
-    (iterations, useful_segments) as Python ints.
+# What the spans did since import (or since a caller reset them): spans
+# run, rounds run, CUDA graphs captured, rounds replayed from a graph, host
+# reads (the loop condition once a round, the useful count once a span, the
+# device sync before a capture) and seconds spent capturing.
+graph_count = {"spans": 0, "rounds": 0, "captures": 0, "replays": 0,
+               "syncs": 0, "capture_s": 0.0}
 
-    ``per``/``n_shards``/``shard_id``: local pixel count and round-robin
-    shard placement — local pixel p is global pixel p*n_shards+shard_id
-    (identity when n_shards == 1).  Rays and RNG use the global id; padding
-    pixels (global id >= W*H) are consumed but never activated."""
+
+def _deposit(fb: torch.Tensor, pend: torch.Tensor, pixel: torch.Tensor,
+             Lsum: V3, inv_spp: float, drop: torch.Tensor) -> None:
+    """Add the chunk sums of the lanes in ``pend`` into their pixels' rows
+    of ``fb`` [per + P, 3], in place, by one ``index_add_`` of a fixed
+    shape: every other lane adds into its own row past the image (``drop``
+    = per + lane), which nothing reads, as JAX's drop-mode scatter throws
+    it away (mort_tpu/render/wavefront.py:266-277).  No host read decides
+    which lanes deposit, so a captured graph can hold it; a real pixel gets
+    the same adds in the same lane order as from its depositing lanes
+    alone."""
+    fb.index_add_(0, torch.where(pend, pixel, drop), Lsum.to_rows() * inv_spp)
+
+
+def _make_round(data: SceneData, meta: SceneMeta, cam: Camera, seed: int,
+                fb: torch.Tensor, task_start: int, task_end: int, *,
+                pool: int, window: int, spt: int, use_kernel: bool,
+                accel: str, no_defocus: bool, per: int, n_shards: int,
+                shard_id: int):
+    """One span's round and the static tensors it reads and writes in
+    place: returns ``(round_, state)``.  ``state`` holds the lanes' fields,
+    ``fb`` (the image's ``per`` rows, then one drop row a lane), ``counter``
+    (the next task), ``useful`` (the useful segments so far) and ``go``
+    (the loop condition after the last round).  A replayed CUDA graph reads
+    and writes the addresses it was captured with, so a round rebinds
+    nothing that outlives it: it ends by copying its results into these
+    tensors.  The span's constants (``total``, ``seed``, ``inv_spp``,
+    ``spt``, ``per``, the camera basis) are Python scalars or tensors made
+    here, once a span, outside any capture."""
     dev = fb.device
     W, H = cam.image_width, cam.image_height
     WH = W * H
@@ -84,6 +114,32 @@ def _span_core(data: SceneData, meta: SceneMeta, cam: Camera, seed: int,
     bg = cam.background
     bg_v = V3(bg[0], bg[1], bg[2])
 
+    def zeros(dtype):
+        return torch.zeros(P, dtype=dtype, device=dev)
+
+    def v3_full(x):
+        return V3(*(torch.full((P,), x, dtype=torch.float32, device=dev)
+                    for _ in range(3)))
+
+    lanes = {
+        "alive": zeros(torch.bool), "pend": zeros(torch.bool),
+        "pixel": zeros(torch.int64), "sample": zeros(torch.int64),
+        "send": zeros(torch.int64), "ro": v3_full(0.0), "rd": v3_full(1.0),
+        "tme": zeros(torch.float32), "bounce": zeros(torch.int64),
+        "L": v3_full(0.0), "Lsum": v3_full(0.0), "beta": v3_full(1.0),
+    }
+    fbx = torch.zeros((per + P, 3), dtype=torch.float32, device=dev)
+    fbx[:per] = fb
+    state = {
+        "lanes": lanes, "fb": fbx,
+        "drop": torch.arange(per, per + P, device=dev),
+        "counter": torch.full((), task_start, dtype=torch.int64, device=dev),
+        "useful": torch.zeros((), dtype=torch.int64, device=dev),
+        "go": torch.full((), task_start < total, dtype=torch.bool,
+                         device=dev),
+    }
+    counter, useful = state["counter"], state["useful"]
+
     def closest(ro, rd, tme):
         if use_kernel:
             return ch.closest_hit(packed, ro, rd, tme)
@@ -97,7 +153,7 @@ def _span_core(data: SceneData, meta: SceneMeta, cam: Camera, seed: int,
 
     def bounce_step(s):
         act = s["alive"]
-        s["useful"] += act.sum()
+        useful.add_(act.sum())
         pixel = to_global(s["pixel"])
         sample, bounce = s["sample"], s["bounce"]
         ro, rd, tme, beta, L = s["ro"], s["rd"], s["tme"], s["beta"], s["L"]
@@ -138,15 +194,12 @@ def _span_core(data: SceneData, meta: SceneMeta, cam: Camera, seed: int,
         s["sample"] = sample
         s["alive"] = path_on | more
 
-    def round_(s, counter):
-        # --- deposit chunk sums finished in the previous window: only the
-        # depositing lanes are selected (index_add_ has no drop mode) ---
+    def round_():
+        s = dict(lanes)
+        # --- deposit chunk sums finished in the previous window ---
         pend = s["pend"]
-        lanes = pend.nonzero().squeeze(1)
-        Lsum = s["Lsum"]
-        fb.index_add_(0, s["pixel"][lanes],
-                      Lsum.to_rows()[lanes] * inv_spp)
-        Lsum = v3.where(pend, 0.0, Lsum)
+        _deposit(fbx, pend, s["pixel"], s["Lsum"], inv_spp, state["drop"])
+        Lsum = v3.where(pend, 0.0, s["Lsum"])
 
         # --- refill idle lanes with fresh chunk-tasks ---
         alive = s["alive"]
@@ -173,36 +226,108 @@ def _span_core(data: SceneData, meta: SceneMeta, cam: Camera, seed: int,
         s["beta"] = v3.where(has, 1.0, s["beta"])
         s["pixel"], s["sample"] = pixel, sample
         s["alive"] = alive | has
-        counter = counter + idle.sum()
+        counter.add_(idle.sum())
 
         entering = s["alive"]
         for _ in range(window):
             bounce_step(s)
         # lanes whose chunk completed during the window deposit next round
         s["pend"] = entering & ~s["alive"]
-        return counter
+        for k, x in s.items():
+            if isinstance(x, V3):
+                for dst, src in zip(lanes[k], x):
+                    dst.copy_(src)
+            else:
+                lanes[k].copy_(x)
+        state["go"].copy_(torch.stack([counter < total, lanes["alive"].any(),
+                                       lanes["pend"].any()]).any())
 
-    zi = torch.zeros(P, dtype=torch.int64, device=dev)
-    zb = torch.zeros(P, dtype=torch.bool, device=dev)
-    s = {
-        "alive": zb, "pend": zb, "pixel": zi, "sample": zi, "send": zi,
-        "ro": V3.zeros(P, dev), "rd": V3.ones(P, dev),
-        "tme": torch.zeros(P, dtype=torch.float32, device=dev),
-        "bounce": zi, "L": V3.zeros(P, dev), "Lsum": V3.zeros(P, dev),
-        "beta": V3.ones(P, dev),
-        "useful": torch.zeros((), dtype=torch.int64, device=dev),
-    }
-    counter = torch.tensor(task_start, dtype=torch.int64, device=dev)
+    return round_, state
+
+
+def _graph_route(dev: torch.device, eager: bool) -> bool:
+    """Whether a span on ``dev`` replays its rounds from a CUDA graph."""
+    return dev.type == "cuda" and not eager
+
+
+def _capture(round_, dev: torch.device):
+    """Capture one round into a CUDA graph (on ``torch.cuda.graph``'s side
+    stream, with its own memory pool); returns ``(graph, replay)``.  The
+    capture runs nothing on the card, so the closest-hit launches it
+    counted are taken back, and ``replay()`` adds them for each round it
+    replays."""
+    before = dict(ch.launch_count)
+    graph = torch.cuda.CUDAGraph()
+    t0 = time.perf_counter()
+    with torch.cuda.device(dev), torch.cuda.graph(graph):
+        round_()
+    graph_count["capture_s"] += time.perf_counter() - t0
+    graph_count["captures"] += 1
+    graph_count["syncs"] += 1
+    held = {k: ch.launch_count[k] - n for k, n in before.items()}
+    ch.launch_count.update(before)
+
+    def replay():
+        graph.replay()
+        for k, n in held.items():
+            ch.launch_count[k] += n
+        graph_count["replays"] += 1
+
+    return graph, replay
+
+
+def _span_core(data: SceneData, meta: SceneMeta, cam: Camera, seed: int,
+               fb: torch.Tensor, task_start: int, task_end: int, *,
+               pool: int, window: int, spt: int, use_kernel: bool,
+               accel: str, no_defocus: bool, per: int, n_shards: int,
+               shard_id: int, eager: bool = False):
+    """Run the wavefront over local chunk-tasks [task_start, task_end),
+    accumulating into ``fb`` [per, 3] in place.  Returns
+    (iterations, useful_segments) as Python ints.
+
+    ``per``/``n_shards``/``shard_id``: local pixel count and round-robin
+    shard placement — local pixel p is global pixel p*n_shards+shard_id
+    (identity when n_shards == 1).  Rays and RNG use the global id; padding
+    pixels (global id >= W*H) are consumed but never activated.
+
+    On a CUDA device the span is the counterpart of the JAX package's
+    ``jax.jit(_wavefront_span)``: round 1 runs eagerly (it builds or loads
+    the kernel library and does torch's lazy initialisation), the next
+    round is captured once into a CUDA graph, and every later round is one
+    replay of it; the loop condition is read on the host once a round.  A
+    failed capture or replay raises.  ``eager`` (private: the card tests and
+    chip_smoke.py compare the two routes with it) runs every round eagerly,
+    as the CPU always does; both routes run the same ops on the same
+    operands."""
+    round_, state = _make_round(
+        data, meta, cam, seed, fb, task_start, task_end, pool=pool,
+        window=window, spt=spt, use_kernel=use_kernel, accel=accel,
+        no_defocus=no_defocus, per=per, n_shards=n_shards,
+        shard_id=shard_id)
+    graph = _graph_route(fb.device, eager)
+    captured = replay = None
     iters = 0
-    while True:
-        # the loop condition, read on the host: one sync per round
-        go = torch.stack([counter < total, s["alive"].any(),
-                          s["pend"].any()]).any()
-        if not bool(go):
-            break
-        counter = round_(s, counter)
-        iters += 1
-    return iters, int(s["useful"])
+    graph_count["spans"] += 1
+    try:
+        while True:
+            # the loop condition, read on the host: one sync per round
+            graph_count["syncs"] += 1
+            if not bool(state["go"]):
+                break
+            if not graph or iters == 0:
+                round_()
+            else:
+                if replay is None:
+                    captured, replay = _capture(round_, fb.device)
+                replay()
+            iters += 1
+            graph_count["rounds"] += 1
+    finally:
+        if captured is not None:
+            captured.reset()
+    fb.copy_(state["fb"][:per])
+    graph_count["syncs"] += 1
+    return iters, int(state["useful"])
 
 
 def default_pool(meta: SceneMeta, n_pixels: int) -> int:

@@ -59,9 +59,17 @@ def _mulhilo(a: torch.Tensor, m: int):
     return q >> 16, ((q & 0xFFFF) << 16) | (p & 0xFFFF)
 
 
-def _word(x, device) -> torch.Tensor:
-    """A counter word as an int64 tensor in [0, 2^32) (u32 wrap-around of
-    negative ints, as ``jnp.asarray(x, uint32)`` does)."""
+def _word(x, device):
+    """A counter word in [0, 2^32) (u32 wrap-around of negative ints, as
+    ``jnp.asarray(x, uint32)`` does): a tensor becomes int64 on its device;
+    a Python int stays a Python int, which the ops below take as a scalar,
+    so a constant word makes no host-to-device copy (a captured CUDA graph
+    allows none).  Every partial product stays below 2^49, so the int and
+    int64 arithmetic give the same words."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int64) & _M32
+    if isinstance(x, (int, np.integer)):
+        return int(x) & _M32
     return torch.as_tensor(x, device=device).to(torch.int64) & _M32
 
 
@@ -84,7 +92,10 @@ def philox4x32(c0, c1, c2, c3, k0: int, k1: int):
         c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
         k0 = (k0 + PHILOX_W0) & _M32
         k1 = (k1 + PHILOX_W1) & _M32
-    return torch.broadcast_tensors(c0, c1, c2, c3)
+    return torch.broadcast_tensors(
+        *(c if isinstance(c, torch.Tensor)
+          else torch.tensor(c, dtype=torch.int64, device=dev)
+          for c in (c0, c1, c2, c3)))
 
 
 def _bits_to_unit(x: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""The CUDA closest-hit kernel against its plain version, on the card.
+"""The CUDA closest-hit kernel against its plain version, on the card,
+and the wavefront spans' CUDA graphs against their eager rounds.
 
 Marked ``cuda``: without a card every test skips.  Imports no jax, so on a
 machine without jax it runs without the repository's conftest:
@@ -7,6 +8,7 @@ machine without jax it runs without the repository's conftest:
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -15,6 +17,7 @@ import torch
 from mort_tpu_torch import require_cuda
 from mort_tpu_torch.camera import derive_basis, get_rays_soa
 from mort_tpu_torch.render import closest_hit as ch
+from mort_tpu_torch.render import wavefront as wf
 from mort_tpu_torch.render.intersect import quad_frames
 from mort_tpu_torch.render.primtable import build_prim_table
 from mort_tpu_torch.render.vec import V3
@@ -715,3 +718,98 @@ def test_intersect_world_card_vs_cpu(dev):
         torch.testing.assert_close(getattr(got, name).cpu(),
                                    getattr(want, name), rtol=4e-6,
                                    atol=4e-6 * 555, msg=name)
+
+
+def _images_close(got, want, frac_ok=0.98, atol=2e-2, mean_tol=4e-3):
+    """tests/conftest.py's image rule (that conftest imports jax)."""
+    diff = np.abs(np.asarray(got) - np.asarray(want))
+    assert diff.shape == np.asarray(want).shape
+    frac = float(np.mean(np.all(diff <= atol, axis=-1)))
+    assert frac >= frac_ok and float(diff.mean()) <= mean_tol, (
+        frac, float(diff.mean()))
+
+
+def _both_routes(monkeypatch, fn):
+    """``fn()`` on the spans' graph route, then on the eager route
+    (``_span_core``'s private ``eager``); for each, its result, the
+    closest-hit launches and the spans' graph counts it added."""
+    out = []
+    for eager in (False, True):
+        with monkeypatch.context() as m:
+            if eager:
+                m.setattr(wf, "_span_core",
+                          functools.partial(wf._span_core, eager=True))
+            torch.cuda.synchronize()
+            launches, graphs = dict(ch.launch_count), dict(wf.graph_count)
+            res = fn()
+            torch.cuda.synchronize()
+            out.append((res, {k: ch.launch_count[k] - n
+                              for k, n in launches.items()},
+                        {k: wf.graph_count[k] - n
+                         for k, n in graphs.items()}))
+    return out
+
+
+def _assert_routes_equal(graph, eager, accel, spans):
+    """Bit-equal images (raw int32 views), equal stats and launches; the
+    graph route captured once a span and replayed, the eager one never."""
+    (g_img, g_stats), g_launch, g_count = graph
+    (e_img, e_stats), e_launch, e_count = eager
+    assert torch.equal(g_img.view(torch.int32), e_img.view(torch.int32))
+    assert g_stats == e_stats
+    assert g_launch == e_launch and g_launch[accel] > 0
+    assert e_count["captures"] == e_count["replays"] == 0
+    assert g_count["captures"] == spans and g_count["spans"] == spans
+    assert g_count["rounds"] == e_count["rounds"]
+    assert g_count["replays"] == g_count["rounds"] - spans > 0
+
+
+@pytest.mark.parametrize("accel", ["none", "bvh", "cull"])
+def test_span_graph_equals_eager_scene9(dev, monkeypatch, accel):
+    """Scene 9 at 100x100, 16 spp, depth 4: the captured rounds give the
+    eager rounds' image bit for bit over layer-aligned spans (each pixel
+    deposits once a span, so index_add_'s atomic order cannot show), the
+    same rounds, useful segments and kernel launches; over the default
+    spans the images pass the image rule."""
+    world, cam = sc.final_scene(400, 250, 4)
+    data, meta = world.compile()
+    cam = cam.replace(image_width=100, image_height=100, sqrt_spp=4)
+    graph, eager = _both_routes(monkeypatch, lambda: render_wavefront(
+        data, meta, cam, dev, seed=9, accel=accel, layer_range=(0, 2),
+        return_stats=True))
+    _assert_routes_equal(graph, eager, accel, spans=2)
+    (g_img, g_launch, g_count), (e_img, e_launch, _) = _both_routes(
+        monkeypatch, lambda: render_wavefront(data, meta, cam, dev, seed=9,
+                                              accel=accel))
+    assert g_count["replays"] > 0 and g_launch == e_launch
+    _images_close(g_img.cpu().numpy(), e_img.cpu().numpy())
+
+
+def test_span_graph_equals_eager_spread16k(dev, monkeypatch):
+    """The 16,384-sphere scene at 160x90, 4 spp, depth 4 (auto accel
+    "bvh"): graph and eager routes bit-equal over layer-aligned spans."""
+    world, cam = sc.spread_spheres()
+    data, meta = world.compile()
+    cam = cam.replace(image_width=160, image_height=90, sqrt_spp=2,
+                      bounce_limit=4)
+    graph, eager = _both_routes(monkeypatch, lambda: render_wavefront(
+        data, meta, cam, dev, seed=9, layer_range=(0, 1),
+        return_stats=True))
+    _assert_routes_equal(graph, eager, "bvh", spans=1)
+
+
+def test_span_graph_equals_eager_progressive(dev, monkeypatch):
+    """Progressive scene 6 (48x48, 9 spp, spt 3: three layers, a span
+    each) through both routes: the same bits, launches and rounds."""
+    from mort_tpu_torch.render.progressive import (
+        render_progressive_wavefront,
+    )
+
+    world, cam = sc.cornell_box()
+    data, meta = world.compile()
+    cam = cam.replace(image_width=48, image_height=48, sqrt_spp=3,
+                      bounce_limit=8)
+    graph, eager = _both_routes(monkeypatch, lambda: (
+        torch.from_numpy(render_progressive_wavefront(
+            data, meta, cam, spt=3).fb), {}))
+    _assert_routes_equal(graph, eager, "none", spans=3)
