@@ -62,7 +62,9 @@ Phases, one line each or more (any failure raises and exits non-zero):
 10. main path, the train step: ``make_train_step`` on scene 1 at
    ``bench.py --grad``'s config (600x338, 4 spp, depth 8), one warm-up step
    and three timed ones, launch counts reset just before and read just
-   after (32 forward and 32 backward launches a step);
+   after (32 forward and 32 backward launches a step): the first call
+   runs eagerly and captures the step into a CUDA graph, the three timed
+   ones replay it;
 11. the lockstep ``render`` of scene 1 (200x112, 16 spp, depth 20) through
    the kernel, through the plain closest hit and against
    ``render_wavefront``, by the image rule;
@@ -124,14 +126,28 @@ Phases, one line each or more (any failure raises and exits non-zero):
    100x100, 16 spp through "none", "bvh" and "cull", spread16k at 160x90
    and progressive scene 6 at 48x48, over layer-aligned spans, images
    bit-equal as raw int32, rounds, useful segments, slots and launches
-   equal; (b) scene 1 at its bench config and scene 9 at 400x400 with spp
-   cut to 16, in the order graph, eager, graph: wall, peak memory,
+   equal; (b) scene 1 at 1200x675 with spp and depth cut from 100 and 20
+   to 36 and 8 (the run's time) and scene 9 at 400x400 with spp cut to 16,
+   in the order graph, eager, graph: wall, peak memory,
    host syncs, capture seconds, the same stats and launches, the images by
    the image rule; then each route's frame once more under
-   ``torch.profiler``: its idle share and kernels a bounce step.
+   ``torch.profiler``: its idle share and kernels a bounce step;
+22. the train step's CUDA graph: every train step above (phases 10, 12,
+   17, 19, 20) ran its first call eagerly, captured it and replayed the
+   graph for every later call (``make_train_step``'s only route on a card;
+   each main path's step graph counts are printed and checked); here
+   against the eager step (``make_train_step``'s private ``_eager``) at
+   phase 10's config: each route's first call (the capture's seconds),
+   then three seeds on both routes in turns: wall, grad paths/s, peak
+   memory, 32 forward and 32 backward launches a step on both, no
+   recapture across seeds; loss and grads bit-equal where two eager steps
+   are, else within phase 17's tolerance; one step of each route under
+   ``torch.profiler``: idle share, kernels a bounce, the closest hit's
+   forward and backward device seconds.
 
 Every phase prints its seconds.  Files go to build/chip_smoke/
-(git-ignored).  The last lines are a JSON record of phase 21
+(git-ignored).  The last lines are a JSON record of phase 22
+(``{"step_graph": ...}``), a JSON record of phase 21
 (``{"span_graph": ...}``), a JSON record of phases 18-20
 (``{"tools": ...}``), a JSON record of phase 17 (``{"sharding": ...}``:
 walls, launches, collectives,
@@ -173,6 +189,7 @@ from mort_tpu_torch import (  # noqa: E402
 )
 from mort_tpu_torch import _build, rng  # noqa: E402
 from mort_tpu_torch.device import card_line  # noqa: E402
+from mort_tpu_torch.parallel import sharding  # noqa: E402
 from mort_tpu_torch.parallel.launch import run_ranks  # noqa: E402
 from mort_tpu_torch.profile_wavefront import (  # noqa: E402
     _device_us, device_times,
@@ -347,10 +364,14 @@ def sass_mix(name, kernel="closest_hit_none_kernel<false"):
     return mix
 
 
-# the spans' graph counts (wavefront.graph_count) at the last reset_counts
+# the spans' graph counts (wavefront.graph_count) and the train steps'
+# (sharding.step_graph_count) at the last reset_counts
 _GRAPH_BASE = dict(wf.graph_count)
-# the graph counts of each main path, by name, for phase 21's record
+_STEP_BASE = dict(sharding.step_graph_count)
+# the graph counts of each main path, by name, for phases 21 and 22's
+# records
 GRAPHS = {}
+STEP_GRAPHS = {}
 
 
 def reset_counts():
@@ -358,6 +379,7 @@ def reset_counts():
     for mode in ch.launch_count:
         ch.launch_count[mode] = 0
     _GRAPH_BASE.update(wf.graph_count)
+    _STEP_BASE.update(sharding.step_graph_count)
 
 
 def read_counts():
@@ -373,6 +395,18 @@ def read_graphs(name=None):
     moved["capture_s"] = round(moved["capture_s"], 4)
     if name is not None:
         GRAPHS[name] = moved
+    return moved
+
+
+def read_step_graphs(name=None):
+    """The train steps' graph counts since the last ``reset_counts``:
+    steps, captures, recaptures, replays and capture seconds; kept in
+    STEP_GRAPHS under ``name``."""
+    moved = {k: sharding.step_graph_count[k] - _STEP_BASE[k]
+             for k in _STEP_BASE}
+    moved["capture_s"] = round(moved["capture_s"], 4)
+    if name is not None:
+        STEP_GRAPHS[name] = moved
     return moved
 
 
@@ -1091,7 +1125,9 @@ def capture_step_bounce(dev):
 
     ch._launch_bwd = capture
     try:
-        float(make_train_step(meta)(data, cam, target, GRAD_SEEDS[0])[0])
+        # eager: the hook reads the host, which a capture refuses
+        float(make_train_step(meta, _eager=True)(data, cam, target,
+                                                 GRAD_SEEDS[0])[0])
     finally:
         ch._launch_bwd = launch
     return best["args"]
@@ -1206,10 +1242,14 @@ def train_step_main_path(dev, card):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     counts = read_counts()
+    graphs = read_step_graphs("train step scene1")
     peak = torch.cuda.max_memory_allocated()
     step_grads_ok(loss, grads, ("sph_center", "mat_albedo", "tex_color"))
     assert counts["none"] == steps_per_run * per_step, counts
     assert counts["bwd"] == steps_per_run * per_step, counts
+    # one capture (the first call), a replay for every later step
+    assert graphs["captures"] == 1 and graphs["recaptures"] == 0, graphs
+    assert graphs["replays"] == steps_per_run - 1, graphs
     wall = statistics.median(walls)
     log(f"main path train step scene1 {GRAD_W}x{GRAD_H} @ "
         f"{cam.sqrt_spp ** 2}spp depth {cam.bounce_limit}: median wall "
@@ -1217,7 +1257,7 @@ def train_step_main_path(dev, card):
         f"{n_paths / wall:.1f} grad paths/s, loss {float(loss):.6f}, "
         f"launches per step none {counts['none'] // steps_per_run} bwd "
         f"{counts['bwd'] // steps_per_run} ({steps_per_run} steps), peak "
-        f"memory {peak / 2 ** 30:.3f} GiB | {card}")
+        f"memory {peak / 2 ** 30:.3f} GiB, step graphs {graphs} | {card}")
     return counts, wall
 
 
@@ -1823,10 +1863,12 @@ def sharded_paths(dev, card, scene1_img, scene1_wall, step_wall):
                  "none": make_train_step(meta1)}
         walls = {"mesh": [], "none": []}
         counts = dict.fromkeys(ch.launch_count, 0)
+        step_graphs = dict.fromkeys(sharding.step_graph_count, 0)
 
         def run(kind, seed):
-            # the mesh step's launches are counted from just before to just
-            # after each of its calls; the mesh=None steps are not counted
+            # the mesh step's launches and step graphs are counted from
+            # just before to just after each of its calls; the mesh=None
+            # steps are not counted
             reset_counts()
             t0 = time.perf_counter()
             loss, grads = steps[kind](data1, gcam, target, seed)
@@ -1836,6 +1878,8 @@ def sharded_paths(dev, card, scene1_img, scene1_wall, step_wall):
             if kind == "mesh":
                 for mode, n in read_counts().items():
                     counts[mode] += n
+                for k, n in read_step_graphs().items():
+                    step_graphs[k] += n
             return loss, grads
 
         for kind in ("mesh", "none"):       # warm-up: the operands' upload
@@ -1853,6 +1897,9 @@ def sharded_paths(dev, card, scene1_img, scene1_wall, step_wall):
                     w_loss, w_grads = res
         per_step = gcam.sqrt_spp ** 2 * gcam.bounce_limit
         assert counts["none"] == counts["bwd"] == len(GRAD_SEEDS) * per_step
+        STEP_GRAPHS["train step scene1 1-rank mesh"] = step_graphs
+        assert step_graphs["captures"] == 1, step_graphs
+        assert step_graphs["replays"] == len(GRAD_SEEDS) - 1, step_graphs
         coll = steps["mesh"].collectives["all_reduce"]
         assert coll == 1, steps["mesh"].collectives
         step_grads_ok(loss, grads, ("sph_center", "mat_albedo", "tex_color"))
@@ -2025,11 +2072,13 @@ def config5_phase(dev, card):
     rec = config5.run_device(dev, spp=CONFIG5_SPP,
                              warmup_tasks=CONFIG5_WARMUP_TASKS, log=log)
     counts = read_counts()
+    graphs = read_step_graphs("config5 train step")
     assert counts["none"] > 0 and counts["bwd"] > 0, counts
+    assert graphs["captures"] == 1 and graphs["replays"] > 0, graphs
     log(f"config5: final_scene 1920x1080 depth {rec['depth']}, spp cut from "
         f"16 to {rec['spp']} for the run's time, warm-up span "
         f"{CONFIG5_WARMUP_TASKS} tasks: {json.dumps(rec)}; launches none "
-        f"{counts['none']}, bwd {counts['bwd']}")
+        f"{counts['none']}, bwd {counts['bwd']}; step graphs {graphs}")
     return rec, counts
 
 
@@ -2046,14 +2095,16 @@ def bench_phase(dev, card):
         with contextlib.redirect_stdout(out):
             (rec,) = bench.main(argv)
         counts.append(read_counts())
+        graphs = read_step_graphs(f"bench {' '.join(argv)}")
         line = json.loads(out.getvalue().strip().splitlines()[-1])
         assert set(line) == BENCH_LINE_KEYS, line
         assert line["unit"] == "paths/s/chip" and line["value"] > 0, line
         log(f"bench {' '.join(argv)}: {json.dumps(rec)}; summary line "
             f"{json.dumps(line)}; launches none {counts[-1]['none']}, bwd "
-            f"{counts[-1]['bwd']}")
+            f"{counts[-1]['bwd']}; step graphs {graphs}")
         recs.append(rec)
     assert counts[0]["none"] > 0 and counts[1]["bwd"] > 0, counts
+    assert STEP_GRAPHS["bench --grad"]["replays"] > 0, STEP_GRAPHS
     return recs, counts
 
 
@@ -2257,7 +2308,11 @@ def span_graph_phase(dev, card):
     t0 = time.perf_counter()
     rec = {"bit_equal": routes_bit_equal(dev)}
     log(f"phase 21 (a) took {time.perf_counter() - t0:.1f} s")
+    # scene 1 at its bench config cut from 100 spp and depth 20 to 36 spp
+    # and depth 8: its eager frames took 17-25 s each (PR 12), phase 21
+    # 236-321 s of the run
     world1, cam1 = sc.random_spheres()
+    cam1 = cam1.replace(sqrt_spp=6, bounce_limit=8)
     t0 = time.perf_counter()
     rec["scene1"] = routes_frame("scene1", world1, cam1, dev, card)
     log(f"phase 21 (b) scene1 took {time.perf_counter() - t0:.1f} s")
@@ -2269,6 +2324,150 @@ def span_graph_phase(dev, card):
     rec["main_paths"] = dict(GRAPHS)
     for name, g in GRAPHS.items():
         log(f"span graphs of the main path {name}: {g}")
+    return rec
+
+
+def same_bits(a, b):
+    """Whether two steps' (loss, grads) are equal bit for bit."""
+    (a_loss, a_grads), (b_loss, b_grads) = a, b
+    return torch.equal(a_loss.view(torch.int32),
+                       b_loss.view(torch.int32)) and all(
+        torch.equal(g.view(torch.int32), b_grads[k].view(torch.int32))
+        for k, g in a_grads.items())
+
+
+def step_graph_phase(dev, card):
+    """Phase 22: the train step's CUDA graph against the eager step at
+    phase 10's config.  Each route's first call (the graph route's warm-up
+    step and capture), then three seeds on both routes in turns (graph,
+    eager; eager, graph; graph, eager): wall, grad paths/s, peak memory and
+    launches a step, and the memory each route's first call leaves reserved
+    (on the graph route, the graph's pool, which keeps the step's
+    intermediates); one more eager step at the last seed shows whether
+    two eager steps are bit-equal, and the routes are held bit-equal if
+    they are, else within phase 17's tolerance; then one step of each route
+    under ``torch.profiler``: device busy seconds, idle share of the
+    route's median wall, kernels a bounce.  Returns the ``{"step_graph":
+    ...}`` record."""
+    world, cam = sc.random_spheres()
+    data, meta = world.compile()
+    cam = cam.replace(image_width=GRAD_W, image_height=GRAD_H, sqrt_spp=2,
+                      bounce_limit=8)
+    target = np.zeros((GRAD_H, GRAD_W, 3), np.float32)
+    per_step = cam.sqrt_spp ** 2 * cam.bounce_limit
+    n_paths = GRAD_W * GRAD_H * cam.sqrt_spp ** 2
+    steps = {False: make_train_step(meta),
+             True: make_train_step(meta, _eager=True)}
+    names = {False: "graph", True: "eager"}
+    rec = {k: {"wall_s": [], "peak_gib": []} for k in names.values()}
+    results = {}
+
+    def call(eager, seed):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = steps[eager](data, cam, target, seed)
+        float(res[0])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, graphs = read_counts(), read_step_graphs()
+        assert counts["none"] == counts["bwd"] == per_step, counts
+        return res, wall, torch.cuda.max_memory_allocated(), graphs
+
+    for eager in (False, True):
+        # what the first call leaves reserved, cached blocks released: the
+        # graph's private pool on the graph route
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        _, wall, peak, graphs = call(eager, GRAD_SEEDS[0])
+        torch.cuda.empty_cache()
+        assert graphs["captures"] == (0 if eager else 1), graphs
+        rec[names[eager]].update(
+            first_call_s=wall, capture_s=graphs["capture_s"],
+            first_peak_gib=peak / 2 ** 30,
+            kept_gib=(torch.cuda.memory_reserved() - reserved) / 2 ** 30)
+    for i, seed in enumerate(GRAD_SEEDS[1:]):
+        for eager in ((False, True) if i % 2 == 0 else (True, False)):
+            res, wall, peak, graphs = call(eager, seed)
+            assert graphs["captures"] == graphs["recaptures"] == 0, graphs
+            assert graphs["replays"] == (0 if eager else 1), graphs
+            results[eager, seed] = res
+            rec[names[eager]]["wall_s"].append(wall)
+            rec[names[eager]]["peak_gib"].append(peak / 2 ** 30)
+            log(f"step routes scene1 {GRAD_W}x{GRAD_H} @ 4spp depth 8, "
+                f"{names[eager]}, seed {seed}: wall {wall:.4f} s, "
+                f"{n_paths / wall:.1f} grad paths/s, peak memory "
+                f"{peak / 2 ** 30:.4f} GiB, loss {float(res[0]):.7f} | "
+                f"{card}")
+    again = call(True, GRAD_SEEDS[-1])[0]
+    deterministic = same_bits(again, results[True, GRAD_SEEDS[-1]])
+    equal = all(same_bits(results[False, s], results[True, s])
+                for s in GRAD_SEEDS[1:])
+    worst = 0.0
+    for s in GRAD_SEEDS[1:]:
+        (g_loss, g_grads), (e_loss, e_grads) = results[False, s], \
+            results[True, s]
+        step_grads_ok(g_loss, g_grads, ("sph_center", "mat_albedo",
+                                        "tex_color"))
+        torch.testing.assert_close(g_loss, e_loss, rtol=1e-4, atol=0.0)
+        scale = max(float(g.abs().max()) for g in e_grads.values())
+        for k, g in g_grads.items():
+            torch.testing.assert_close(g, e_grads[k], rtol=1e-3,
+                                       atol=1e-5 * scale,
+                                       msg=lambda m, k=k: f"{k}: {m}")
+            worst = max(worst, float((g - e_grads[k]).abs().max()) / scale)
+    if deterministic:
+        assert equal, "phase 22: the routes differ where eager steps do not"
+    del results, again
+    for eager in (False, True):
+        key = names[eager]
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            call(eager, GRAD_SEEDS[1])
+        kernels, busy_us, n_kernels, modes = device_times(prof)
+        del prof
+        assert busy_us > 0, f"step {key}: the profiler saw no device time"
+        bwd_us = sum(_device_us(e) for e in kernels
+                     if "closest_hit_bwd_" in e.key)
+        wall = statistics.median(rec[key]["wall_s"])
+        rec[key].update(busy_s=busy_us / 1e6,
+                        idle_share=1 - busy_us / 1e6 / wall,
+                        kernels_per_bounce=n_kernels / per_step,
+                        closest_hit_fwd_s=modes["none"] / 1e6,
+                        closest_hit_bwd_s=bwd_us / 1e6)
+        log(f"step routes profiled step, {key}: device busy "
+            f"{busy_us / 1e6:.4f} s, idle share "
+            f"{1 - busy_us / 1e6 / wall:.4f} of the median unprofiled wall "
+            f"{wall:.4f} s, {n_kernels} device kernels = "
+            f"{n_kernels / per_step:.1f} a bounce ({per_step} bounces), "
+            f"closest hit forward {modes['none'] / 1e6:.4f} s, backward "
+            f"{bwd_us / 1e6:.4f} s | {card}")
+    g, e = rec["graph"], rec["eager"]
+    rec.update(config=f"{GRAD_W}x{GRAD_H} 4spp depth 8", bit_equal=equal,
+               eager_deterministic=deterministic, grads_max_rel_diff=worst,
+               recaptures=0, grad_paths_per_s={
+                   k: n_paths / statistics.median(rec[k]["wall_s"])
+                   for k in names.values()},
+               main_paths=dict(STEP_GRAPHS))
+    log(f"step routes scene1: median wall graph "
+        f"{statistics.median(g['wall_s']):.4f} s, eager "
+        f"{statistics.median(e['wall_s']):.4f} s; grad paths/s graph "
+        f"{rec['grad_paths_per_s']['graph']:.1f}, eager "
+        f"{rec['grad_paths_per_s']['eager']:.1f}; idle share graph "
+        f"{g['idle_share']:.4f}, eager {e['idle_share']:.4f}; first call "
+        f"graph {g['first_call_s']:.3f} s (capture {g['capture_s']:.3f} s), "
+        f"eager {e['first_call_s']:.3f} s; peak memory of a step graph "
+        f"{max(g['peak_gib']):.4f} GiB, eager {max(e['peak_gib']):.4f} GiB, "
+        f"of the first call graph {g['first_peak_gib']:.4f} GiB, eager "
+        f"{e['first_peak_gib']:.4f} GiB; kept reserved after the first call "
+        f"(the graph's pool) graph {g['kept_gib']:.4f} GiB, eager "
+        f"{e['kept_gib']:.4f} GiB; "
+        f"recaptures across seeds 0; two eager steps bit-equal "
+        f"{deterministic}, graph vs eager bit-equal {equal} (grads max "
+        f"|diff| / max|g| {worst:.3e}) | {card}")
+    for name, graphs in STEP_GRAPHS.items():
+        log(f"step graphs of the main path {name}: {graphs}")
     return rec
 
 
@@ -2508,7 +2707,11 @@ def main():
 
     # ---- 21. the spans' CUDA graphs against the eager rounds ----
     span_graph = span_graph_phase(dev, card)
-    phase_done(21, t_phase, t_start)
+    t_phase = phase_done(21, t_phase, t_start)
+
+    # ---- 22. the train step's CUDA graph against the eager step ----
+    step_graph = step_graph_phase(dev, card)
+    phase_done(22, t_phase, t_start)
 
     launches = {"none": counts9["none"], "bvh": counts16m["bvh"],
                 "cull": counts9c["cull"], "bwd": counts10["bwd"],
@@ -2528,6 +2731,7 @@ def main():
         f"{json.dumps(tools['config5_launches'])}, bench scene 5 and --grad "
         f"{json.dumps(tools['bench_launches'])}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"step_graph": step_graph}))
     log(json.dumps({"span_graph": span_graph}))
     log(json.dumps({"tools": tools}))
     log(json.dumps({"sharding": sharding}))

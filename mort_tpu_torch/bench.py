@@ -118,7 +118,9 @@ def bench_grad_step(quick=False, device=None, width=None, spp=None,
                     depth=None, log=None) -> dict:
     """``bench.py``'s ``_bench_grad_step``: one train step (forward,
     backward and the gradient all-reduce over a 1-device mesh) on scene 1
-    at 600x338 (quick: 160x90), 4 spp, depth 8, as camera paths/s."""
+    at 600x338 (quick: 160x90), 4 spp, depth 8, as camera paths/s.
+    ``compile_s`` is the first call: on a card the eager warm-up step and
+    the capture of the step's CUDA graph, which the timed steps replay."""
     device = require_cuda() if device is None else torch.device(device)
     world, cam = sc.random_spheres(quick=quick)
     data, meta = world.compile()

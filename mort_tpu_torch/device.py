@@ -10,6 +10,7 @@ package's images by ~28% (DEVIATIONS.md section 6).
 
 from __future__ import annotations
 
+import functools
 import subprocess
 
 import torch
@@ -53,3 +54,15 @@ def synchronize(device: torch.device) -> None:
     window ends with it."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+@functools.cache
+def constant(values, dtype: torch.dtype,
+             device: torch.device) -> torch.Tensor:
+    """A constant tensor (``values``: a number or nested tuples of them)
+    made once a device: the first (eager) call copies it from the host,
+    and a later call inside a captured CUDA graph, which allows no
+    host-to-device copy, reads the same tensor.  The cache never drops an
+    entry: a captured graph reads the tensor's address for as long as the
+    graph lives, and a freed tensor's memory could be handed to another."""
+    return torch.tensor(values, dtype=dtype, device=device)

@@ -22,6 +22,8 @@ counts it, so an entry point can report the collectives it ran.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import os
 import socket
 from collections import Counter
@@ -35,6 +37,9 @@ from ..camera import Camera
 from ..device import require_cuda
 from ..rng import DEFAULT_SEED
 from ..scene.build import SceneData, SceneMeta
+from ..render import closest_hit as ch
+from ..render.graphs import capture, graph_route as _graph_route
+from ..render.intersect import quad_frames
 from ..render.renderer import _pick_ray_batch, radiance_for_pixels
 
 
@@ -199,6 +204,17 @@ _DIFF_FIELDS = ("sph_center", "sph_cvec", "sph_radius", "quad_Q", "quad_u",
                 "quad_v", "mat_albedo", "mat_fuzz", "mat_ior", "tex_color")
 
 
+# What the train steps did since import (or since a caller reset them):
+# steps run, CUDA graphs captured, captures that replaced the graph of
+# another key, steps replayed from a graph and seconds spent capturing.
+step_graph_count = {"steps": 0, "captures": 0, "recaptures": 0,
+                    "replays": 0, "capture_s": 0.0}
+
+# the step's capture, counted in ``step_graph_count`` (a test puts a
+# stand-in here)
+_capture = functools.partial(capture, counts=step_graph_count)
+
+
 def _extract_diff(data: SceneData) -> dict:
     return {f: getattr(data, f) for f in _DIFF_FIELDS}
 
@@ -207,8 +223,34 @@ def _merge_diff(data: SceneData, diff: dict) -> SceneData:
     return data.replace(**diff)
 
 
+def _tensors(obj) -> list:
+    """Every tensor of the dataclass ``obj`` (a ``SceneData`` or a
+    ``Camera``) in field order, tuples of tensors flattened."""
+    out = []
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, tuple):
+            out += [x for x in v if isinstance(x, torch.Tensor)]
+        elif isinstance(v, torch.Tensor):
+            out.append(v)
+    return out
+
+
+def _cloned(obj):
+    """``obj`` (a ``SceneData`` or a ``Camera``) with every tensor
+    cloned."""
+    kw = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, tuple):
+            kw[f.name] = tuple(x.clone() for x in v)
+        elif isinstance(v, torch.Tensor):
+            kw[f.name] = v.clone()
+    return obj.replace(**kw)
+
+
 def make_train_step(meta: SceneMeta, mesh: Mesh | None = None, device=None,
-                    chunk=512, use_kernel=None, accel=None):
+                    chunk=512, use_kernel=None, accel=None, _eager=False):
     """Build ``run(data, cam, target_img, seed) -> (loss, grads)``: the MSE
     of ``radiance_for_pixels(differentiable=True)`` over all pixels against
     ``target_img`` ([H, W, 3], row 0 = bottom), and its gradient with
@@ -226,6 +268,30 @@ def make_train_step(meta: SceneMeta, mesh: Mesh | None = None, device=None,
     bit.  ``use_kernel`` and ``accel``: as in
     ``renderer.radiance_for_pixels`` (None: the kernel on a card,
     ``intersect_best`` on the CPU).
+
+    On a card the step (forward, loss and ``torch.autograd.grad``) is one
+    captured device program, the counterpart of the JAX package's
+    ``jax.jit`` (mort_tpu/parallel/sharding.py:164): the first call of a
+    graph key runs the step eagerly on static copies of its operands,
+    which builds or loads the kernel library and does torch's lazy
+    initialisation and gives the call's result, then captures it into a
+    CUDA graph (``render.graphs.capture``: its seconds belong to the first
+    call, as a jit compiles on its first call); every later call of the
+    key copies the caller's values into the static operands and replays
+    the graph.  The seed is an operand (an int64 device scalar), so one
+    capture serves every seed.  The key: the camera's static fields, the
+    shapes of the scene's tensors and the axis-aligned quads that left
+    their axes (``closest_hit.aaq_off_axis``, one host read each time the
+    caller's ``data`` object changes); ``meta``, the mesh, the device,
+    ``chunk``, ``use_kernel`` and ``accel`` are the step's own.  A new key
+    captures again and drops the old graph.  Results are fresh tensors,
+    never the graph's outputs, so a caller may keep a step's gradients
+    across the next.  A failed capture or replay raises.  The CPU always
+    runs eagerly; so does ``_eager=True`` (private: the card tests and
+    chip_smoke.py compare the two routes with it).  The gradient
+    all-reduce runs after the replay, outside the graph (gloo cannot be
+    captured).  ``step_graph_count`` counts steps, captures, recaptures,
+    replays and capture seconds.
     """
     if mesh is None:
         device = require_cuda() if device is None else torch.device(device)
@@ -233,6 +299,11 @@ def make_train_step(meta: SceneMeta, mesh: Mesh | None = None, device=None,
     else:
         device = check_mesh(mesh, device)
         n, sid = mesh.size, mesh.rank
+    if use_kernel is None:
+        use_kernel = device.type == "cuda"
+    # "none" packs the axis-aligned quads apart from those off their axes
+    aaq_split = use_kernel and (
+        accel or ch.auto_accel(meta.n_spheres + meta.n_quads)) == "none"
 
     # The step's operands live on the device across calls, keyed on the
     # identity of the caller's objects: a training loop passes the same
@@ -240,8 +311,14 @@ def make_train_step(meta: SceneMeta, mesh: Mesh | None = None, device=None,
     # id() alone can be reused by the next object after a collection (a
     # stale scene under finite-difference probing, in the JAX package).
     prep_cache = {}
+    # the captured step of the current key: key, graph, replay, static
+    # operands and outputs
+    graph = {}
 
     def _prep(data, cam, target_img):
+        """(hit, operands): whether the caller's objects are the last
+        call's, and their device operands (data, cam, target block, pixel
+        ids, the aaq rows off their axes)."""
         key = prep_cache.get("key")
         hit = (key is not None and key[0] is data and key[1] is cam
                and key[2] is target_img)
@@ -256,36 +333,95 @@ def make_train_step(meta: SceneMeta, mesh: Mesh | None = None, device=None,
                 [target, target[-1:].expand(n * per - WH, 3)])
             block = slice(sid * per, (sid + 1) * per)
             pix = torch.from_numpy(pix[block]).to(device, torch.int64)
+            data_dev = data.to(device)
+            off_axis = None
+            if aaq_split:
+                with torch.no_grad():
+                    off_axis = ch.aaq_off_axis(meta, ch.quad_records(
+                        data_dev, quad_frames(data_dev)))
             prep_cache.update(key=(data, cam, target_img),
-                              val=(data.to(device), cam.to(device),
-                                   target[block], pix))
-        return prep_cache["val"]
+                              val=(data_dev, cam.to(device), target[block],
+                                   pix, off_axis))
+        return hit, prep_cache["val"]
 
-    def run(data: SceneData, cam: Camera, target_img, seed=DEFAULT_SEED):
-        data_dev, cam_dev, target, pix = _prep(data, cam, target_img)
-        diff = {k: v.detach().requires_grad_()
-                for k, v in _extract_diff(data_dev).items()}
-        img = radiance_for_pixels(_merge_diff(data_dev, diff), meta, cam_dev,
-                                  int(seed), pix, chunk=chunk,
-                                  differentiable=True, use_kernel=use_kernel,
-                                  accel=accel)
+    def _body(data, leaves, cam, target, pix, seed, off_axis):
+        img = radiance_for_pixels(_merge_diff(data, leaves), meta, cam, seed,
+                                  pix, chunk=chunk, differentiable=True,
+                                  use_kernel=use_kernel, accel=accel,
+                                  off_axis=off_axis)
         loss = torch.mean((img - target) ** 2)
         if n > 1:
             loss = loss / n
-        grads = torch.autograd.grad(loss, list(diff.values()),
+        grads = torch.autograd.grad(loss, list(leaves.values()),
                                     allow_unused=True, materialize_grads=True)
-        loss = loss.detach()
-        run.collectives = Counter()
+        return loss.detach(), list(grads)
+
+    def _graph_step(hit, ops, seed):
+        data_dev, cam_dev, target, pix, off_axis = ops
+        key = ((cam_dev.image_width, cam_dev.image_height, cam_dev.sqrt_spp,
+                cam_dev.bounce_limit), off_axis,
+               tuple(tuple(t.shape) for t in _tensors(data_dev)))
+        if graph.get("key") != key:
+            if graph:
+                graph.pop("graph").reset()
+                step_graph_count["recaptures"] += 1
+            graph.clear()
+            data = _cloned(data_dev)
+            leaves = {k: v.requires_grad_()
+                      for k, v in _extract_diff(data).items()}
+            static = (data, leaves, _cloned(cam_dev), target.clone(),
+                      pix.clone(), torch.full((), seed, dtype=torch.int64,
+                                              device=device), off_axis)
+            out = {}
+
+            def body():
+                out["loss"], out["grads"] = _body(*static)
+
+            # the warm-up, eager: this call's result
+            first = _body(*static)
+            captured, replay = _capture(body, device)
+            graph.update(key=key, graph=captured, replay=replay,
+                         static=static, out=out)
+            return first
+        data, _leaves, cam_s, target_s, pix_s, seed_s, _ = graph["static"]
+        with torch.no_grad():
+            if not hit:
+                for dst, src in zip(_tensors(data) + _tensors(cam_s)
+                                    + [target_s, pix_s],
+                                    _tensors(data_dev) + _tensors(cam_dev)
+                                    + [target, pix]):
+                    dst.copy_(src)
+            seed_s.fill_(seed)
+        graph["replay"]()
+        out = graph["out"]
+        return out["loss"].clone(), [g.clone() for g in out["grads"]]
+
+    collectives = Counter()
+
+    def run(data: SceneData, cam: Camera, target_img, seed=DEFAULT_SEED):
+        step_graph_count["steps"] += 1
+        hit, ops = _prep(data, cam, target_img)
+        if _graph_route(device, _eager):
+            loss, grads = _graph_step(hit, ops, int(seed) & 0xFFFFFFFF)
+        else:
+            data_dev, cam_dev, target, pix, off_axis = ops
+            leaves = {k: v.detach().requires_grad_()
+                      for k, v in _extract_diff(data_dev).items()}
+            loss, grads = _body(data_dev, leaves, cam_dev, target, pix,
+                                int(seed), off_axis)
+        collectives.clear()
         if mesh is not None and mesh.groups:
             bucket = torch.cat([loss.reshape(1)]
                                + [g.reshape(-1) for g in grads])
-            run.collectives["all_reduce"] = _all_reduce(mesh, bucket,
-                                                        "grads")
+            collectives["all_reduce"] = _all_reduce(mesh, bucket, "grads")
             loss = bucket[0]
             parts = bucket[1:].split([g.numel() for g in grads])
             grads = [p.reshape(g.shape) for p, g in zip(parts, grads)]
-        return loss, dict(zip(diff, grads))
+        return loss, dict(zip(_DIFF_FIELDS, grads))
 
+    # attributes, not names ``run`` reads: a function that refers to
+    # itself lives in a reference cycle, and a captured graph it holds would
+    # be freed by the cyclic collector at any time, a capture included
     run.prep_cache = prep_cache
-    run.collectives = Counter()
+    run.collectives = collectives
     return run

@@ -111,6 +111,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..device import constant
 from ..scene.build import SceneData, SceneMeta
 from .intersect import (
     INF, K_NONE, K_QUAD, K_SPHERE, T_MIN, QuadFrames, first_min,
@@ -272,20 +273,23 @@ def quad_bounds(data: SceneData):
     return corners.amin(dim=0) - QUAD_PAD, corners.amax(dim=0) + QUAD_PAD
 
 
-def box_tables(data: SceneData, meta: SceneMeta):
+def box_tables(data: SceneData, meta: SceneMeta, off_axis=()):
     """The closed axis-aligned boxes of ``meta.aab`` (the port of the JAX
     package's ``pack_aab`` and of the row list of ``pack_quads_general``):
     (aab_tab [n_box, 8] f32 = lo xyz, hi xyz of the six faces' padded
     corners (``quad_bounds``), max |lo|, |hi|, 0; aab_faces [n_box, 6]
     int32 face rows; gen_rows [n_gen] int32, the quad rows below
     ``meta.n_quads`` of ``SceneMeta.aaq_class`` 9 — neither a box's face
-    (-2) nor axis-aligned (0-8, ``aaq_tables``) — in registry order)."""
+    (-2) nor axis-aligned (0-8, ``aaq_tables``) — in registry order, then
+    the rows ``off_axis`` (``aaq_off_axis``)).  The index tensors are
+    ``device.constant``s of ``meta`` and ``off_axis``: no host data is
+    copied once they exist."""
     dev = data.quad_Q.device
-    gen = [r for r in range(meta.n_quads)
-           if not meta.aaq_class or meta.aaq_class[r] == 9]
-    gen_rows = torch.tensor(gen, dtype=torch.int32, device=dev)
-    faces = torch.tensor(meta.aab, dtype=torch.int32,
-                         device=dev).reshape(-1, 6)
+    gen = tuple(r for r in range(meta.n_quads)
+                if not meta.aaq_class or meta.aaq_class[r] == 9)
+    gen_rows = constant(gen + tuple(off_axis), torch.int32, dev)
+    faces = constant(tuple(map(tuple, meta.aab)), torch.int32,
+                     dev).reshape(-1, 6)
     lo, hi = quad_bounds(data)
     f = faces.long()
     lo, hi = lo[f].amin(dim=1), hi[f].amax(dim=1)
@@ -305,63 +309,78 @@ def aaq_groups_of(meta: SceneMeta) -> dict:
     return groups
 
 
-def aaq_tables(meta: SceneMeta, quad: torch.Tensor):
+def quad_records(data: SceneData, qf: QuadFrames) -> torch.Tensor:
+    """[Nq, QUAD_COLS] f32: each quad's n, D, vxw, qa, wxu, qb and surface
+    flag, the record the kernels test."""
+    return torch.cat([
+        qf.normal, qf.D[:, None], qf.vxw, qf.qa[:, None], qf.wxu,
+        qf.qb[:, None], data.quad_surface.to(torch.float32)[:, None],
+    ], dim=1).contiguous()
+
+
+def aaq_off_axis(meta: SceneMeta, quad: torch.Tensor) -> tuple:
+    """The registry rows of ``SceneMeta.aaq_class`` 0-8 whose normal, vxw
+    or wxu in ``quad`` (``quad_records``) has a nonzero off-axis component
+    (a gradient step moved ``quad_u`` or ``quad_v`` off the axes), in
+    ``aaq_tables``' order: the specialised test would not give their bits,
+    so they go to the general test.  One read of the frames on the host,
+    the only one of the pack: a caller that captures the pack computes it
+    first, outside the capture."""
+    groups = aaq_groups_of(meta)
+    cand = [r for c in sorted(groups) for r in groups[c]]
+    if not cand:
+        return ()
+    dev = quad.device
+    rec = quad[torch.tensor(cand, dtype=torch.int64, device=dev)]
+    cls = torch.tensor([c for c in sorted(groups) for _ in groups[c]],
+                       dtype=torch.int64, device=dev)
+    lane = torch.arange(len(cand), device=dev)
+    # the normal (cols 0-2) along k, vxw (4-6) along i, wxu (8-10) along
+    # j; every other component of the three must be exact zeros
+    i, j = cls // 3, cls % 3
+    on = torch.zeros((len(cand), QUAD_COLS), dtype=torch.bool, device=dev)
+    on[lane, 3 - i - j] = on[lane, 4 + i] = on[lane, 8 + j] = True
+    frame = torch.tensor([0, 1, 2, 4, 5, 6, 8, 9, 10], device=dev)
+    ok = ((rec == 0.0) | on)[:, frame].all(dim=1)
+    return tuple(r for r, exact in zip(cand, ok.tolist()) if not exact)
+
+
+def aaq_tables(meta: SceneMeta, quad: torch.Tensor, off_axis=()):
     """The axis-aligned quads of "none" (the port of the JAX package's
     ``pack_aaq``, whose groups it keeps, without its 8-row padding), from
-    ``quad``, the [Nq, QUAD_COLS] records of ``pack_scene``.
+    ``quad``, the [Nq, QUAD_COLS] records of ``quad_records``, less the
+    rows ``off_axis`` (``aaq_off_axis``), which the general test takes.
 
     Returns (aaq_tab [n_aaq, AAQ_COLS] f32, aaq_groups [n_groups,
-    AAQ_GROUP_COLS] int32, general: the registry rows left to the general
-    test).  Group g is the rows [start, start + n) of the table, the quads
-    of one class in registry order, classes ascending; its normal lies
-    along axis k, u along i and v along j.  A row holds the operands of the
-    specialised test, n_k, D, a_i (of vxw), qa, b_j (of wxu), qb, then the
-    registry row (float32-exact below 2^24) and its live flag (the surface
-    flag: a skip row is never tested).  A quad of class 0-8 whose normal,
-    vxw or wxu has a nonzero off-axis component (a gradient step moved
-    ``quad_u`` or ``quad_v`` off the axes) is left to the general test: the
-    specialised test would not give its bits.  Finding those is one read of
-    the frames on the host."""
+    AAQ_GROUP_COLS] int32).  Group g is the rows [start, start + n) of the
+    table, the quads of one class in registry order, classes ascending;
+    its normal lies along axis k, u along i and v along j.  A row holds
+    the operands of the specialised test, n_k, D, a_i (of vxw), qa, b_j
+    (of wxu), qb, then the registry row (float32-exact below 2^24) and its
+    live flag (the surface flag: a skip row is never tested).  The index
+    tensors are ``device.constant``s of ``meta`` and ``off_axis``."""
     groups = aaq_groups_of(meta)
     dev = quad.device
-    cand = [r for c in sorted(groups) for r in groups[c]]
-    exact = {}
-    if cand:
-        rec = quad[torch.tensor(cand, dtype=torch.int64, device=dev)]
-        cls = torch.tensor([c for c in sorted(groups) for _ in groups[c]],
-                           dtype=torch.int64, device=dev)
-        lane = torch.arange(len(cand), device=dev)
-        # the normal (cols 0-2) along k, vxw (4-6) along i, wxu (8-10)
-        # along j; every other component of the three must be exact zeros
-        i, j = cls // 3, cls % 3
-        on = torch.zeros((len(cand), QUAD_COLS), dtype=torch.bool,
-                         device=dev)
-        on[lane, 3 - i - j] = on[lane, 4 + i] = on[lane, 8 + j] = True
-        frame = torch.tensor([0, 1, 2, 4, 5, 6, 8, 9, 10], device=dev)
-        ok = ((rec == 0.0) | on)[:, frame].all(dim=1)
-        exact = dict(zip(cand, ok.tolist()))
-    rows, descs, general = [], [], []
+    rows, descs = [], []
     for c in sorted(groups):
         i, j = c // 3, c % 3
-        keep = [r for r in groups[c] if exact[r]]
-        general += [r for r in groups[c] if not exact[r]]
+        keep = [r for r in groups[c] if r not in off_axis]
         if keep:
             descs.append((len(rows), len(keep), 3 - i - j, i, j))
             rows += keep
     if not rows:
         return (torch.zeros((0, AAQ_COLS), dtype=torch.float32, device=dev),
                 torch.zeros((0, AAQ_GROUP_COLS), dtype=torch.int32,
-                            device=dev), general)
-    r = torch.tensor(rows, dtype=torch.int64, device=dev)
+                            device=dev))
+    r = constant(tuple(rows), torch.int64, dev)
     rec = quad[r]
-    k, i, j = torch.tensor([d[2:] for d in descs for _ in range(d[1])],
-                           dtype=torch.int64, device=dev).unbind(1)
+    k, i, j = constant(tuple(d[2:] for d in descs for _ in range(d[1])),
+                       torch.int64, dev).unbind(1)
     lane = torch.arange(len(rows), device=dev)
     tab = torch.stack([rec[lane, k], rec[:, 3], rec[lane, 4 + i], rec[:, 7],
                        rec[lane, 8 + j], rec[:, 11], r.to(torch.float32),
                        (rec[:, 12] != 0.0).to(torch.float32)], dim=1)
-    return (tab.contiguous(),
-            torch.tensor(descs, dtype=torch.int32, device=dev), general)
+    return tab.contiguous(), constant(tuple(descs), torch.int32, dev)
 
 
 def sphere_pad(scale, r):
@@ -458,10 +477,15 @@ def bvh_tree(data: SceneData, meta: SceneMeta):
 
 
 def pack_scene(data: SceneData, meta: SceneMeta, qf: QuadFrames,
-               table: torch.Tensor, accel: str = "none") -> PackedScene:
+               table: torch.Tensor, accel: str = "none",
+               off_axis=None) -> PackedScene:
     """Per-primitive records for the closest-hit scan (host-side
     precompute of every ray-independent term), the joined table and the
-    accel mode's boxes or tree."""
+    accel mode's boxes or tree.  ``off_axis``: "none"'s axis-aligned quad
+    rows left to the general test (``aaq_off_axis``); None finds them here,
+    by one host read.  With them given, the pack reads nothing on the host
+    and copies no host data once the ``device.constant``s of its index
+    tensors exist, so a CUDA graph can capture it."""
     if accel not in ACCELS:
         raise ValueError(f"closest_hit: accel must be one of {ACCELS}, got "
                          f"{accel!r}")
@@ -475,10 +499,7 @@ def pack_scene(data: SceneData, meta: SceneMeta, qf: QuadFrames,
         _dot3(vx, vy, vz, vx, vy, vz),
         data.sph_surface.to(torch.float32),
     ], dim=1).contiguous()
-    quad = torch.cat([
-        qf.normal, qf.D[:, None], qf.vxw, qf.qa[:, None], qf.wxu,
-        qf.qb[:, None], data.quad_surface.to(torch.float32)[:, None],
-    ], dim=1).contiguous()
+    quad = quad_records(data, qf)
     accel_tab, n_accel = None, 0
     aab_tab = aab_faces = gen_rows = aaq_tab = aaq_groups = None
     # traversal decisions are not differentiable (the JAX package's
@@ -486,11 +507,10 @@ def pack_scene(data: SceneData, meta: SceneMeta, qf: QuadFrames,
     # winning axis-aligned quad's t from its record in ``quad``
     with torch.no_grad():
         if accel == "none":
-            aab_tab, aab_faces, gen_rows = box_tables(data, meta)
-            aaq_tab, aaq_groups, general = aaq_tables(meta, quad)
-            if general:
-                gen_rows = torch.cat([gen_rows, torch.tensor(
-                    general, dtype=torch.int32, device=gen_rows.device)])
+            if off_axis is None:
+                off_axis = aaq_off_axis(meta, quad)
+            aab_tab, aab_faces, gen_rows = box_tables(data, meta, off_axis)
+            aaq_tab, aaq_groups = aaq_tables(meta, quad, off_axis)
         elif accel == "cull":
             accel_tab = cull_boxes(data, meta)
             n_accel = accel_tab.shape[0]

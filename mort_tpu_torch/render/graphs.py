@@ -1,0 +1,62 @@
+"""Captured device programs: the port's counterpart of ``jax.jit``.
+
+A wavefront round (``wavefront._span_core``) and a train step
+(``parallel.sharding.make_train_step``) each run once eagerly on a card,
+which builds or loads the kernel library and does torch's lazy
+initialisation, and are then captured once into a ``torch.cuda.CUDAGraph``
+and replayed.  A replay reads and writes the addresses the capture saw,
+so what is captured works on static tensors that it writes in place, and
+makes no host read and no tensor from host data (``device.constant``
+serves the constants).
+"""
+
+from __future__ import annotations
+
+import gc
+import time
+
+import torch
+
+from . import closest_hit as ch
+
+
+def graph_route(dev: torch.device, eager: bool) -> bool:
+    """Whether work on ``dev`` is replayed from a CUDA graph: on a card,
+    unless ``eager`` (private to the tests and chip_smoke.py, which compare
+    the two routes).  The CPU always runs eagerly."""
+    return dev.type == "cuda" and not eager
+
+
+def capture(fn, dev: torch.device, counts: dict):
+    """Capture ``fn()`` into a CUDA graph (on ``torch.cuda.graph``'s side
+    stream, with its own memory pool); returns ``(graph, replay)``.
+    ``counts``' "captures" and "capture_s" count the capture, its
+    "replays" each replay.  The capture runs nothing on the card, so the
+    closest-hit launches it counted are taken back, and ``replay()`` adds
+    them each time it replays.  A failure raises."""
+    before = dict(ch.launch_count)
+    graph = torch.cuda.CUDAGraph()
+    t0 = time.perf_counter()
+    # no cyclic collection while capturing (torch.cuda.graph collects just
+    # before): a collected graph, an earlier step's, would destroy its
+    # executable, which invalidates the capture
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.device(dev), torch.cuda.graph(graph):
+            fn()
+    finally:
+        if collecting:
+            gc.enable()
+    counts["capture_s"] += time.perf_counter() - t0
+    counts["captures"] += 1
+    held = {k: ch.launch_count[k] - n for k, n in before.items()}
+    ch.launch_count.update(before)
+
+    def replay():
+        graph.replay()
+        for k, n in held.items():
+            ch.launch_count[k] += n
+        counts["replays"] += 1
+
+    return graph, replay

@@ -43,14 +43,16 @@ class Prepacked:
 
 
 def prepack(data: SceneData, meta: SceneMeta, qf: QuadFrames,
-            use_kernel: bool, accel: str | None = None) -> Prepacked:
-    """``accel``: the kernel's mode (None picks ``closest_hit.auto_accel``)."""
+            use_kernel: bool, accel: str | None = None,
+            off_axis=None) -> Prepacked:
+    """``accel``: the kernel's mode (None picks ``closest_hit.auto_accel``);
+    ``off_axis``: as in ``closest_hit.pack_scene``."""
     table, mat_cols = build_prim_table(data, meta, qf)
     packed = None
     if use_kernel:
         if accel is None:
             accel = ch.auto_accel(meta.n_spheres + meta.n_quads)
-        packed = ch.pack_scene(data, meta, qf, table, accel)
+        packed = ch.pack_scene(data, meta, qf, table, accel, off_axis)
     return Prepacked(table, mat_cols, packed)
 
 

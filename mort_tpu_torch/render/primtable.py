@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from ..device import constant
 from ..scene.build import SceneData, SceneMeta
 from ..scene.types import (
     MAT_DIELECTRIC, MAT_DIFFUSE_LIGHT, MAT_METAL, TEX_CHECKER, TEX_SOLID,
@@ -61,8 +62,8 @@ def material_columns(data: SceneData, meta: SceneMeta) -> torch.Tensor:
     """[M, 16] material/texture columns of the join."""
     dev = data.mat_tex.device
     M = len(meta.mat_kind)
-    kind = torch.tensor(meta.mat_kind, dtype=torch.int32, device=dev)
-    tex_kind = torch.tensor(meta.tex_kind, dtype=torch.int32, device=dev)
+    kind = constant(tuple(meta.mat_kind), torch.int32, dev)
+    tex_kind = constant(tuple(meta.tex_kind), torch.int32, dev)
 
     tid = data.mat_tex[:M].long()
     even = data.tex_child_even[tid].long()

@@ -40,7 +40,7 @@ def _pick_ray_batch(meta: SceneMeta, n_pixels: int) -> int:
 def radiance_for_pixels(data: SceneData, meta: SceneMeta, cam: Camera,
                         seed: int, pixel_ids, chunk=512, differentiable=False,
                         sample_offset=0, n_samples=None, use_kernel=None,
-                        accel=None):
+                        accel=None, off_axis=None):
     """Mean radiance over ``n_samples`` stratified samples for a flat pixel
     id tensor [P] -> [P, 3], on ``pixel_ids``' device (where ``data`` and
     ``cam`` must lie).  ``sample_offset`` allows progressive accumulation
@@ -55,7 +55,14 @@ def radiance_for_pixels(data: SceneData, meta: SceneMeta, cam: Camera,
     card and False on the CPU (the JAX default).  Unlike
     ``render_wavefront``, where ``use_kernel=True`` on the CPU raises, here
     it selects the Function's plain version.  ``accel``: the kernel's mode
-    (None picks ``closest_hit.auto_accel``)."""
+    (None picks ``closest_hit.auto_accel``).  ``off_axis``: as in
+    ``closest_hit.pack_scene``.
+
+    ``seed``: an int, or an int64 tensor of one element (``rng.philox4x32``);
+    with that and ``off_axis`` given, nothing here reads the host or makes
+    a tensor from host data once the closest-hit library is loaded and the
+    ``device.constant``s exist, so a CUDA graph can capture the call
+    (``parallel.sharding.make_train_step``)."""
     spp = cam.sqrt_spp * cam.sqrt_spp
     if n_samples is None:
         n_samples = spp
@@ -63,7 +70,7 @@ def radiance_for_pixels(data: SceneData, meta: SceneMeta, cam: Camera,
         use_kernel = pixel_ids.device.type == "cuda"
     basis = derive_basis(cam)
     qf = quad_frames(data)
-    prepacked = prepack(data, meta, qf, use_kernel, accel)
+    prepacked = prepack(data, meta, qf, use_kernel, accel, off_axis)
     P = pixel_ids.shape[0]
     acc = torch.zeros((P, 3), dtype=torch.float32, device=pixel_ids.device)
     for s in range(sample_offset, sample_offset + n_samples):

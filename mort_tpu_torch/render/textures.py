@@ -19,10 +19,9 @@ low word of a product comes from 16-bit limbs of the constant multiplier
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
+from ..device import constant
 from ..scene.build import SceneData, SceneMeta
 from ..scene.types import TEX_CHECKER, TEX_IMAGE, TEX_NOISE
 
@@ -122,15 +121,6 @@ def _turbulence(p, salt, depth=7):
     return torch.abs(accum)
 
 
-@functools.lru_cache(maxsize=64)
-def _constant(values, dtype: torch.dtype,
-              device: torch.device) -> torch.Tensor:
-    """A constant tensor made once a device: the first (eager) call copies
-    it from the host, and a later call inside a captured CUDA graph, which
-    allows no host-to-device copy, reads the same tensor."""
-    return torch.tensor(values, dtype=dtype, device=device)
-
-
 def noise_salt(nid: int) -> int:
     """Per-noise-texture hash salt (each texture is an independent field,
     like the reference's per-texture permutation tables)."""
@@ -150,7 +140,7 @@ def _base_value(data: SceneData, meta: SceneMeta, kind_arr, tid, u, v, p):
         exact = meta.images_u8_exact or (True,) * meta.n_images
         # a true float32 divide: on CUDA a division by a Python scalar is
         # a multiply by its reciprocal, which is not the u8/255 value
-        d255 = _constant(255.0, torch.float32, p.device)
+        d255 = constant(255.0, torch.float32, p.device)
         for img_id in range(meta.n_images):
             H, W = data.images[img_id].shape[0], data.images[img_id].shape[1]
             i = torch.clamp((uc * W).to(torch.int32), 0, W - 1).long()
@@ -184,7 +174,7 @@ def texture_value(data: SceneData, meta: SceneMeta, tid, u, v, p):
     """Full texture dispatch incl. one checker nesting level
     (textures.cuh:327-349 + 52-60).  tid: [R] texture rows; u, v: [R];
     p: [R,3].  Returns [R,3]."""
-    kind_arr = _constant(tuple(meta.tex_kind), torch.int32, p.device)
+    kind_arr = constant(tuple(meta.tex_kind), torch.int32, p.device)
     if TEX_CHECKER not in meta.tex_kind:
         return _base_value(data, meta, kind_arr, tid, u, v, p)
 

@@ -45,7 +45,7 @@ pixel from one rank) gathers the image on every rank.
 
 from __future__ import annotations
 
-import time
+import functools
 
 import numpy as np
 import torch
@@ -57,6 +57,7 @@ from ..scene.build import SceneData, SceneMeta
 from ..device import require_cuda
 from . import closest_hit as ch
 from . import vec as v3
+from .graphs import capture, graph_route as _graph_route
 from .hitshade import finalize_and_shade
 from .intersect import T_MIN, media_pass, quad_frames
 from .primtable import build_prim_table
@@ -245,35 +246,9 @@ def _make_round(data: SceneData, meta: SceneMeta, cam: Camera, seed: int,
     return round_, state
 
 
-def _graph_route(dev: torch.device, eager: bool) -> bool:
-    """Whether a span on ``dev`` replays its rounds from a CUDA graph."""
-    return dev.type == "cuda" and not eager
-
-
-def _capture(round_, dev: torch.device):
-    """Capture one round into a CUDA graph (on ``torch.cuda.graph``'s side
-    stream, with its own memory pool); returns ``(graph, replay)``.  The
-    capture runs nothing on the card, so the closest-hit launches it
-    counted are taken back, and ``replay()`` adds them for each round it
-    replays."""
-    before = dict(ch.launch_count)
-    graph = torch.cuda.CUDAGraph()
-    t0 = time.perf_counter()
-    with torch.cuda.device(dev), torch.cuda.graph(graph):
-        round_()
-    graph_count["capture_s"] += time.perf_counter() - t0
-    graph_count["captures"] += 1
-    graph_count["syncs"] += 1
-    held = {k: ch.launch_count[k] - n for k, n in before.items()}
-    ch.launch_count.update(before)
-
-    def replay():
-        graph.replay()
-        for k, n in held.items():
-            ch.launch_count[k] += n
-        graph_count["replays"] += 1
-
-    return graph, replay
+# the span's capture, counted in ``graph_count`` (a test puts a stand-in
+# here)
+_capture = functools.partial(capture, counts=graph_count)
 
 
 def _span_core(data: SceneData, meta: SceneMeta, cam: Camera, seed: int,
@@ -319,6 +294,7 @@ def _span_core(data: SceneData, meta: SceneMeta, cam: Camera, seed: int,
             else:
                 if replay is None:
                     captured, replay = _capture(round_, fb.device)
+                    graph_count["syncs"] += 1
                 replay()
             iters += 1
             graph_count["rounds"] += 1

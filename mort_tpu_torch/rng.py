@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import constant
+
 # Philox4x32 round constants.
 PHILOX_M0 = 0xD2511F53
 PHILOX_M1 = 0xCD9E8D57
@@ -47,6 +49,8 @@ MAX_MEDIA = 4
 SLOTS_PER_BOUNCE = SLOT_MEDIUM0 + 1
 
 _M32 = 0xFFFFFFFF
+# the first key word's schedule: round r adds r * PHILOX_W0 (mod 2^32)
+_W0_STEPS = tuple(r * PHILOX_W0 for r in range(PHILOX_ROUNDS))
 
 
 def _mulhilo(a: torch.Tensor, m: int):
@@ -80,17 +84,27 @@ def _device_of(*xs):
     return torch.device("cpu")
 
 
-def philox4x32(c0, c1, c2, c3, k0: int, k1: int):
+def philox4x32(c0, c1, c2, c3, k0, k1: int):
     """One Philox4x32-10 block: four u32 words (int64 tensors) from four
-    counter words (tensors or ints, broadcast together)."""
-    dev = _device_of(c0, c1, c2, c3)
+    counter words (tensors or ints, broadcast together).
+
+    ``k0``, the seed: an int, or an int64 tensor of one element (u32
+    wrap-around as for a counter word), which a captured CUDA graph reads
+    as an operand, so that one capture serves every seed.  Its key
+    schedule (``+ PHILOX_W0`` a round) is then one [PHILOX_ROUNDS] tensor;
+    both give the same words."""
+    dev = _device_of(c0, c1, c2, c3, k0)
     c0, c1, c2, c3 = (_word(c, dev) for c in (c0, c1, c2, c3))
-    k0, k1 = int(k0) & _M32, int(k1) & _M32
-    for _ in range(PHILOX_ROUNDS):
+    if isinstance(k0, torch.Tensor):
+        keys0 = ((_word(k0.reshape(()), dev)
+                  + constant(_W0_STEPS, torch.int64, dev)) & _M32).unbind(0)
+    else:
+        keys0 = [(int(k0) + w) & _M32 for w in _W0_STEPS]
+    k1 = int(k1) & _M32
+    for k0 in keys0:
         hi0, lo0 = _mulhilo(c0, PHILOX_M0)
         hi1, lo1 = _mulhilo(c2, PHILOX_M1)
         c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-        k0 = (k0 + PHILOX_W0) & _M32
         k1 = (k1 + PHILOX_W1) & _M32
     return torch.broadcast_tensors(
         *(c if isinstance(c, torch.Tensor)
@@ -107,7 +121,8 @@ def uniform4(seed, pixel, sample, bounce_plus1, slot):
     """Four independent uniforms in [0, 1) for the given counter.
 
     ``pixel``/``sample`` may be tensors (broadcast together);
-    ``bounce_plus1`` and ``slot`` are tensors or ints (0 = camera-level).
+    ``bounce_plus1`` and ``slot`` are tensors or ints (0 = camera-level);
+    ``seed`` an int or an int64 tensor of one element (``philox4x32``).
     """
     r = philox4x32(pixel, sample, bounce_plus1, slot, seed, SEED2)
     return tuple(_bits_to_unit(w) for w in r)

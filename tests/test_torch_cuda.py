@@ -1,5 +1,6 @@
 """The CUDA closest-hit kernel against its plain version, on the card,
-and the wavefront spans' CUDA graphs against their eager rounds.
+and the wavefront spans' and the train step's CUDA graphs against their
+eager routes.
 
 Marked ``cuda``: without a card every test skips.  Imports no jax, so on a
 machine without jax it runs without the repository's conftest:
@@ -679,6 +680,10 @@ def test_one_rank_nccl_mesh_on_card(dev, tmp_path):
         for k, g in grads.items():
             assert bool(torch.isfinite(g).all()), k
             torch.testing.assert_close(g, w_grads[k], rtol=1e-3, atol=1e-6)
+        # the mesh's captured step against its eager step (the all-reduce
+        # runs after the replay, outside the graph)
+        _assert_step_routes(meta, data, cam, target, "none", 4 * 8,
+                            mesh=mesh)
 
         sharded = render_sharded(data, meta, cam, mesh)
         lock = render(data, meta, cam).cpu().numpy()
@@ -813,3 +818,126 @@ def test_span_graph_equals_eager_progressive(dev, monkeypatch):
         torch.from_numpy(render_progressive_wavefront(
             data, meta, cam, spt=3).fb), {}))
     _assert_routes_equal(graph, eager, "none", spans=3)
+
+
+def _steps(meta, data, cam, target, eager, seeds, **kw):
+    """``make_train_step(meta, _eager=eager, **kw)`` at each seed: for each
+    call its result, the closest-hit launches and the step graph counts it
+    added."""
+    from mort_tpu_torch import make_train_step
+    from mort_tpu_torch.parallel import sharding
+
+    step = make_train_step(meta, _eager=eager, **kw)
+    runs = []
+    for seed in seeds:
+        torch.cuda.synchronize()
+        launches = dict(ch.launch_count)
+        counts = dict(sharding.step_graph_count)
+        res = step(data, cam, target, seed)
+        torch.cuda.synchronize()
+        runs.append((res, {k: ch.launch_count[k] - n
+                           for k, n in launches.items()},
+                     {k: sharding.step_graph_count[k] - n
+                      for k, n in counts.items()}))
+    return runs
+
+
+def _same_bits(a, b):
+    (a_loss, a_grads), (b_loss, b_grads) = a, b
+    return torch.equal(a_loss.view(torch.int32),
+                       b_loss.view(torch.int32)) and all(
+        torch.equal(g.view(torch.int32), b_grads[k].view(torch.int32))
+        for k, g in a_grads.items())
+
+
+def _assert_step_routes(meta, data, cam, target, mode, per_step,
+                        seeds=(7, 8, 9), **kw):
+    """The graph route's steps against the eager route's at the same seeds:
+    the first graph call captures, every later one replays with no
+    recapture; the launches of every call equal (``per_step`` a step in
+    the forward ``mode`` and in the backward); loss and grads bit-equal
+    where two eager steps at one seed are bit-equal to each other, else
+    within phase 17's tolerance (loss rtol 1e-4, grads rtol 1e-3).  Returns which held:
+    "bit-equal" or "within tolerance"."""
+    graph = _steps(meta, data, cam, target, False, seeds, **kw)
+    eager = _steps(meta, data, cam, target, True, seeds + seeds[-1:], **kw)
+    deterministic = _same_bits(eager[-1][0], eager[-2][0])
+    for k, ((g, g_l, g_c), (e, e_l, e_c)) in enumerate(zip(graph, eager)):
+        assert g_l == e_l and g_l[mode] == g_l["bwd"] == per_step, (g_l,
+                                                                    e_l)
+        assert e_c["captures"] == e_c["replays"] == 0
+        assert g_c["recaptures"] == 0
+        assert (g_c["captures"], g_c["replays"]) == ((1, 0) if k == 0
+                                                     else (0, 1)), g_c
+        (g_loss, g_grads), (e_loss, e_grads) = g, e
+        assert bool(torch.isfinite(g_loss))
+        if deterministic:
+            assert _same_bits(g, e), f"seed {seeds[k]}"
+            continue
+        torch.testing.assert_close(g_loss, e_loss, rtol=1e-4, atol=0.0)
+        scale = max(float(x.abs().max()) for x in e_grads.values())
+        for name, x in g_grads.items():
+            torch.testing.assert_close(x, e_grads[name], rtol=1e-3,
+                                       atol=1e-5 * scale,
+                                       msg=lambda m, n=name: f"{n}: {m}")
+    held = "bit-equal" if deterministic else "within tolerance"
+    print(f"step graph vs eager, {mode}: {held}")
+    return held
+
+
+@pytest.mark.parametrize("accel", ["none", "cull", "bvh"])
+def test_step_graph_equals_eager_scene1(dev, accel):
+    """Scene 1 at 64x36, 4 spp, depth 8 through each closest-hit mode:
+    the captured step against the eager step (``_assert_step_routes``)."""
+    world, cam = sc.random_spheres()
+    data, meta = world.compile()
+    cam = cam.replace(image_width=64, image_height=36, sqrt_spp=2,
+                      bounce_limit=8)
+    target = np.zeros((36, 64, 3), np.float32)
+    _assert_step_routes(meta, data, cam, target, accel, 4 * 8, accel=accel)
+
+
+def test_step_graph_equals_eager_cornell(dev):
+    """The Cornell box at 16x16, 4 spp, depth 6 (quads: the axis-aligned
+    path and the boxes of "none"): the captured step against the eager
+    step; then a quad moved off its axes captures once more."""
+    from mort_tpu_torch import make_train_step, render
+    from mort_tpu_torch.parallel import sharding
+
+    world, cam = sc.cornell_box()
+    data, meta = world.compile()
+    cam = cam.replace(image_width=16, image_height=16, sqrt_spp=2,
+                      bounce_limit=6)
+    target = render(data, meta, cam, seed=3).cpu().numpy() * 0.9
+    _assert_step_routes(meta, data, cam, target, "none", 4 * 6)
+    step = make_train_step(meta)
+    step(data, cam, target, 7)
+    groups = ch.aaq_groups_of(meta)
+    cls = sorted(groups)[0]
+    u = data.quad_u.clone()
+    u[groups[cls][0], 3 - cls // 3 - cls % 3] += 1e-3
+    before = dict(sharding.step_graph_count)
+    loss, grads = step(data.replace(quad_u=u), cam, target, 7)
+    moved = {k: sharding.step_graph_count[k] - n for k, n in before.items()}
+    assert moved["captures"] == moved["recaptures"] == 1, moved
+    assert bool(torch.isfinite(loss))
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+
+
+def test_step_graph_results_are_fresh(dev):
+    """A replayed step's results are new tensors: the last step's loss and
+    gradients stay as they were after the next step."""
+    from mort_tpu_torch import make_train_step
+
+    world, cam = sc.random_spheres()
+    data, meta = world.compile()
+    cam = cam.replace(image_width=32, image_height=18, sqrt_spp=2,
+                      bounce_limit=4)
+    target = np.zeros((18, 32, 3), np.float32)
+    step = make_train_step(meta)
+    step(data, cam, target, 1)
+    first = step(data, cam, target, 2)
+    kept = (first[0].clone(), {k: g.clone() for k, g in first[1].items()})
+    second = step(data, cam, target, 3)
+    assert _same_bits(first, kept)
+    assert not _same_bits(first, second)

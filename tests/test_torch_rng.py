@@ -67,3 +67,40 @@ def test_negative_counter_wraps_like_uint32():
                               1, 2)
     for g, w in zip(_np(got), want):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("seed", [0, 69420, 2 ** 31 + 5, 2 ** 32 - 1, -7])
+def test_tensor_seed_equals_int_seed(seed):
+    """The seed as an int64 tensor of one element (the operand a captured
+    train step reads) gives the int seed's words and uniforms bit for bit,
+    and the numpy mirror's and the JAX package's, with u32 wrap-around of a
+    negative seed; per-lane bounce counters and int counter words alike."""
+    rs = np.random.RandomState(seed & 0xFFFF)
+    pix = rs.randint(0, 1 << 31, 1024).astype(np.int64)
+    smp = rs.randint(0, 4096, 1024).astype(np.int64)
+    bnc = rs.randint(0, 50, 1024).astype(np.int64)
+    key = torch.tensor(seed, dtype=torch.int64)
+    u32 = np.uint32(seed & 0xFFFFFFFF)
+    for bounce in (3, 1 + torch.from_numpy(bnc)):
+        b_np = bounce if isinstance(bounce, int) else (1 + bnc)
+        args = (torch.from_numpy(pix), torch.from_numpy(smp), bounce,
+                trng.SLOT_LIGHT_DIR)
+        got = trng.philox4x32(*args, key, trng.SEED2)
+        ints = trng.philox4x32(*args, seed, trng.SEED2)
+        want = jrng.philox4x32_np(pix.astype(np.uint32),
+                                  smp.astype(np.uint32),
+                                  np.asarray(b_np).astype(np.uint32),
+                                  np.uint32(trng.SLOT_LIGHT_DIR), u32,
+                                  jrng.SEED2)
+        for g, i, w in zip(_np(got), _np(ints), want):
+            np.testing.assert_array_equal(g, i)
+            np.testing.assert_array_equal(g, w)
+        u_key = trng.uniform4(key.reshape(1), *args)
+        u_int = trng.uniform4(seed, *args)
+        u_jax = jrng.uniform4(u32, jnp.asarray(pix, jnp.uint32),
+                              jnp.asarray(smp, jnp.uint32),
+                              jnp.asarray(b_np, jnp.uint32),
+                              jrng.SLOT_LIGHT_DIR)
+        for k, i, j in zip(u_key, u_int, u_jax):
+            assert torch.equal(k.view(torch.int32), i.view(torch.int32))
+            np.testing.assert_array_equal(k.numpy(), np.asarray(j))
