@@ -66,8 +66,9 @@ Phases, one line each or more (any failure raises and exits non-zero):
    runs eagerly and captures the step into a CUDA graph, the three timed
    ones replay it;
 11. the lockstep ``render`` of scene 1 (200x112, 16 spp, depth 20) through
-   the kernel, through the plain closest hit and against
-   ``render_wavefront``, by the image rule;
+   the kernel (replays of the lockstep graphs, one "none" launch a bounce
+   step), through the plain closest hit and against ``render_wavefront``,
+   by the image rule;
 12. the Cornell box train step (12x12, 4 spp, depth 6) on the card against
    the same step on the CPU (the Function's plain versions), and the card's
    ``intersect_best`` route;
@@ -96,8 +97,8 @@ Phases, one line each or more (any failure raises and exits non-zero):
    10's rule, with its all-reduce count; (b) the script starts itself twice
    (``--rank r --world 2``) as gloo ranks sharing the one card: the
    wavefront (scene 1 at 300x169, 16 spp, depth 20; spread16k at 160x90
-   through "bvh") bit-equal to one rank, ``render_sharded`` by the image
-   rule, the train step's grads within rtol 5e-3, a scene-6 progressive
+   through "bvh") bit-equal to one rank, ``render_sharded`` (replays of
+   the lockstep graphs on every rank) by the image rule, the train step's grads within rtol 5e-3, a scene-6 progressive
    render checkpointed on two ranks resumed on one bit-identical to an
    uninterrupted one, every rank's launches above 0, and the 1-rank mesh
    bit-equal to the render without a mesh over the same layer-aligned
@@ -127,8 +128,9 @@ Phases, one line each or more (any failure raises and exits non-zero):
    and progressive scene 6 at 48x48, over layer-aligned spans, images
    bit-equal as raw int32, rounds, useful segments, slots and launches
    equal; (b) scene 1 at 1200x675 with spp and depth cut from 100 and 20
-   to 36 and 8 (the run's time) and scene 9 at 400x400 with spp cut to 16,
-   in the order graph, eager, graph: wall, peak memory,
+   to 36 and 8 (the run's time; its scene-9 frames at 400x400, 16 spp,
+   were cut for phase 23), in the order graph, eager, graph: wall, peak
+   memory,
    host syncs, capture seconds, the same stats and launches, the images by
    the image rule; then each route's frame once more under
    ``torch.profiler``: its idle share and kernels a bounce step;
@@ -143,10 +145,29 @@ Phases, one line each or more (any failure raises and exits non-zero):
    recapture across seeds; loss and grads bit-equal where two eager steps
    are, else within phase 17's tolerance; one step of each route under
    ``torch.profiler``: idle share, kernels a bounce, the closest hit's
-   forward and backward device seconds.
+   forward and backward device seconds;
+23. the lockstep forward's CUDA graphs: ``render``, ``render_progressive``
+   and ``render_sharded`` above (phases 11, 12, 17) replayed the captured
+   "start" and "bounce" (``renderer.radiance_batches``' only route on a
+   card; each main path's lockstep counts are printed and checked); here
+   against the eager route (their private ``_eager``): (a) ``render``'s
+   lockstep on scene 9 at 100x100, 16 spp, depth 4 through "none", "bvh"
+   and "cull"; ``render(use_kernel=False)`` on the Cornell box at 48x48,
+   16 spp, depth 8; ``render_progressive`` on the Cornell box at its own
+   600x600 (three batches of 2^17 pixels, the last short), 4 spp, depth 8,
+   in steps of 3 and 1 samples; ``render_sharded`` over ``make_mesh(1)``
+   on scene 1 at 200x112, 16 spp, depth 20, with and without
+   ``differentiable``: images bit-equal as raw int32, the same launches,
+   bounces and host reads; (b) scene 1 at 1200x675 and depth 20 (13
+   batches of 2^16 pixels) with spp cut from 100 to 4 (the run's time),
+   in the order graph, eager, graph: wall, paths/s, bounces, host reads,
+   captures, capture seconds, launches (equal), peak allocated and
+   reserved memory, the images bit-equal; then one frame of each route
+   under ``torch.profiler``: idle share and kernels a bounce step.
 
 Every phase prints its seconds.  Files go to build/chip_smoke/
-(git-ignored).  The last lines are a JSON record of phase 22
+(git-ignored).  The last lines are a JSON record of phase 23
+(``{"lockstep_graph": ...}``), a JSON record of phase 22
 (``{"step_graph": ...}``), a JSON record of phase 21
 (``{"span_graph": ...}``), a JSON record of phases 18-20
 (``{"tools": ...}``), a JSON record of phase 17 (``{"sharding": ...}``:
@@ -198,6 +219,9 @@ from mort_tpu_torch.camera import derive_basis, get_rays_soa  # noqa: E402
 from mort_tpu_torch.render import closest_hit as ch  # noqa: E402
 from mort_tpu_torch.render import wavefront as wf  # noqa: E402
 from mort_tpu_torch.render.hitshade import finalize_and_shade  # noqa: E402
+from mort_tpu_torch.render.integrator import (  # noqa: E402
+    lockstep_graph_count,
+)
 from mort_tpu_torch.render.intersect import (  # noqa: E402
     K_QUAD, K_SPHERE, T_MIN, media_pass, quad_frames,
 )
@@ -368,10 +392,13 @@ def sass_mix(name, kernel="closest_hit_none_kernel<false"):
 # (sharding.step_graph_count) at the last reset_counts
 _GRAPH_BASE = dict(wf.graph_count)
 _STEP_BASE = dict(sharding.step_graph_count)
-# the graph counts of each main path, by name, for phases 21 and 22's
+# and the lockstep forward's (integrator.lockstep_graph_count)
+_LOCK_BASE = dict(lockstep_graph_count)
+# the graph counts of each main path, by name, for phases 21, 22 and 23's
 # records
 GRAPHS = {}
 STEP_GRAPHS = {}
+LOCK_GRAPHS = {}
 
 
 def reset_counts():
@@ -380,6 +407,7 @@ def reset_counts():
         ch.launch_count[mode] = 0
     _GRAPH_BASE.update(wf.graph_count)
     _STEP_BASE.update(sharding.step_graph_count)
+    _LOCK_BASE.update(lockstep_graph_count)
 
 
 def read_counts():
@@ -395,6 +423,17 @@ def read_graphs(name=None):
     moved["capture_s"] = round(moved["capture_s"], 4)
     if name is not None:
         GRAPHS[name] = moved
+    return moved
+
+
+def read_lockstep(name=None):
+    """The lockstep forward's counts since the last ``reset_counts``:
+    bounces run, host reads of ``alive.any()``, captures, recaptures,
+    replays and capture seconds; kept in LOCK_GRAPHS under ``name``."""
+    moved = {k: lockstep_graph_count[k] - _LOCK_BASE[k] for k in _LOCK_BASE}
+    moved["capture_s"] = round(moved["capture_s"], 4)
+    if name is not None:
+        LOCK_GRAPHS[name] = moved
     return moved
 
 
@@ -1271,7 +1310,9 @@ def lockstep_render(dev):
     reset_counts()
     a = render(data, meta, cam, seed=SEED)
     counts = read_counts()
+    lock = read_lockstep("lockstep scene1 200x112 16spp")
     assert counts["none"] > 0, "the lockstep render launched no kernel"
+    assert lock["replays"] > 0 and counts["none"] == lock["bounces"], lock
     b = render(data, meta, cam, seed=SEED, use_kernel=False)
     c = render_wavefront(data, meta, cam, dev, seed=SEED)
     a, b, c = (x.cpu().numpy() for x in (a, b, c))
@@ -1279,9 +1320,9 @@ def lockstep_render(dev):
     fp, mp = assert_images_close(a, b)
     fw, mw = assert_images_close(a, c)
     log(f"lockstep render scene1 200x112 @ 16spp depth 20: kernel "
-        f"({counts['none']} launches) vs plain frac_within={fp:.5f}, "
-        f"mean_abs={mp:.3e}; vs render_wavefront frac_within={fw:.5f}, "
-        f"mean_abs={mw:.3e}")
+        f"({counts['none']} launches, lockstep graphs {lock}) vs plain "
+        f"frac_within={fp:.5f}, mean_abs={mp:.3e}; vs render_wavefront "
+        f"frac_within={fw:.5f}, mean_abs={mw:.3e}")
 
 
 def train_step_card_vs_cpu(dev):
@@ -1681,6 +1722,7 @@ def sharded_runs(mesh, ckpt, resume):
     reset_counts()
     out["sharded"] = render_sharded(data, meta, cam, mesh, seed=SEED)
     out["sharded_launches"] = read_counts()["none"]
+    out["sharded_replays"] = read_lockstep()["replays"]
     data, meta, cam = cfg["grad"]
     step = make_train_step(meta, mesh)
     target = np.zeros((cam.image_height, cam.image_width, 3), np.float32)
@@ -1968,6 +2010,9 @@ def sharded_paths(dev, card, scene1_img, scene1_wall, step_wall):
                 assert res[key] > 0, f"rank {r}: {key} {res[key]}"
             assert res["step_all_reduce"] == 1
             assert res["wf_scene1_span_collectives"] == 0
+        for r, res in enumerate(two + [one]):
+            assert res["sharded_replays"] > 0, \
+                f"render_sharded replayed no lockstep graph ({r})"
         wf_equal = {name: all(np.array_equal(res[f"wf_{name}"],
                                              one[f"wf_{name}"])
                               for res in two)
@@ -1999,7 +2044,8 @@ def sharded_paths(dev, card, scene1_img, scene1_wall, step_wall):
             f"bit-equal {prog_equal}; launches per rank "
             + "; ".join(f"rank {r}: none {res['wf_scene1_launches']}, bvh "
                         f"{res['wf_spread16k_launches']}, render_sharded "
-                        f"{res['sharded_launches']}, step none "
+                        f"{res['sharded_launches']} (lockstep replays "
+                        f"{res['sharded_replays']}), step none "
                         f"{res['step_launches']} bwd "
                         f"{res['step_bwd_launches']}, progressive "
                         f"{res['prog_launches']}"
@@ -2015,6 +2061,10 @@ def sharded_paths(dev, card, scene1_img, scene1_wall, step_wall):
                    two_rank_launches=[{
                        k[:-len("_launches")]: int(res[k]) for k in res
                        if k.endswith("_launches")} for res in two],
+                   two_rank_render_sharded_replays=[
+                       int(res["sharded_replays"]) for res in two],
+                   one_rank_render_sharded_replays=int(
+                       one["sharded_replays"]),
                    two_rank_step_all_reduce=int(two[0]["step_all_reduce"]),
                    two_rank_wavefront_collectives=int(
                        two[0]["wf_scene1_collectives"]),
@@ -2303,8 +2353,12 @@ def routes_frame(name, world, cam, dev, card):
 def span_graph_phase(dev, card):
     """Phase 21: the spans' CUDA graphs against the eager rounds.  Returns
     the ``{"span_graph": ...}`` record: (a) the bit-equality set, (b)
-    scene 1 at its bench config and scene 9 at 400x400, 16 spp, and the
-    graph counts of the main paths of phases 5-19."""
+    scene 1 at its bench config cut to 36 spp, depth 8, and the graph
+    counts of the main paths of phases 5-19.  (b)'s scene-9 frames (400x400,
+    16 spp: 73-100 s of the run on an H100 80GB HBM3 at 700 W) were cut to
+    make room for phase 23; phase 6 still renders scene 9 at its code-true
+    config on the graph route, and (a) holds its routes bit-equal at
+    100x100."""
     t0 = time.perf_counter()
     rec = {"bit_equal": routes_bit_equal(dev)}
     log(f"phase 21 (a) took {time.perf_counter() - t0:.1f} s")
@@ -2316,11 +2370,6 @@ def span_graph_phase(dev, card):
     t0 = time.perf_counter()
     rec["scene1"] = routes_frame("scene1", world1, cam1, dev, card)
     log(f"phase 21 (b) scene1 took {time.perf_counter() - t0:.1f} s")
-    world9, cam9 = sc.final_scene(400, 250, 4)
-    t0 = time.perf_counter()
-    rec["scene9 16spp"] = routes_frame("scene9 16spp", world9,
-                                       cam9.replace(sqrt_spp=4), dev, card)
-    log(f"phase 21 (b) scene9 16spp took {time.perf_counter() - t0:.1f} s")
     rec["main_paths"] = dict(GRAPHS)
     for name, g in GRAPHS.items():
         log(f"span graphs of the main path {name}: {g}")
@@ -2468,6 +2517,197 @@ def step_graph_phase(dev, card):
         f"|diff| / max|g| {worst:.3e}) | {card}")
     for name, graphs in STEP_GRAPHS.items():
         log(f"step graphs of the main path {name}: {graphs}")
+    return rec
+
+
+def on_lockstep_route(fn, eager):
+    """``fn(eager)`` on the lockstep graph route or the eager one: its
+    result, the closest-hit launches and lockstep counts it added, its wall
+    seconds, its peak allocated and the reserved device memory (bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = fn(eager)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (torch.as_tensor(res), read_counts(), read_lockstep(), wall,
+            torch.cuda.max_memory_allocated(), torch.cuda.memory_reserved())
+
+
+def lockstep_routes_bit_equal(dev):
+    """Phase 23 (a): each lockstep config through both routes: the images
+    bit-equal (raw int32 views), launches, bounces and host reads equal,
+    replays on the graph route and none on the eager one."""
+    from mort_tpu_torch.render.progressive import render_progressive
+    from mort_tpu_torch.render.renderer import (
+        _pick_ray_batch, radiance_batches,
+    )
+
+    world9, cam9 = sc.final_scene(400, 250, 4)
+    data9, meta9 = world9.compile()
+    data9 = data9.to(dev)
+    cam9 = cam9.replace(image_width=100, image_height=100,
+                        sqrt_spp=4).to(dev)
+    pix9 = torch.arange(100 * 100, device=dev)
+    world6, cam6 = sc.build_scene(6)
+    data6, meta6 = world6.compile()
+    box = cam6.replace(image_width=48, image_height=48, sqrt_spp=4,
+                       bounce_limit=8)
+    # its own 600x600: batches of 2^17 pixels, the last of 97,856
+    prog = cam6.replace(sqrt_spp=2, bounce_limit=8)
+    world1, cam1 = sc.random_spheres()
+    data1, meta1 = world1.compile()
+    cam1 = cam1.replace(image_width=200, image_height=112, sqrt_spp=4)
+    mesh = make_mesh(1)
+
+    def lock9(mode):
+        return lambda eager: radiance_batches(
+            data9, meta9, cam9, SEED, pix9, _pick_ray_batch(meta9, 10000),
+            accel=mode, eager=eager)
+
+    def sharded(differentiable):
+        return lambda eager: render_sharded(
+            data1, meta1, cam1, mesh, seed=SEED,
+            differentiable=differentiable, _eager=eager)
+
+    cases = [(f"render scene9 100x100 16spp depth 4 {m}", lock9(m), m)
+             for m in ch.ACCELS]
+    cases += [
+        ("render(use_kernel=False) cornell 48x48 16spp depth 8",
+         lambda eager: render(data6, meta6, box, seed=SEED, use_kernel=False,
+                              _eager=eager), None),
+        ("render_progressive cornell 600x600 4spp depth 8 steps 3+1",
+         lambda eager: render_progressive(data6, meta6, prog, seed=SEED,
+                                          samples_per_step=3,
+                                          _eager=eager).fb, "none"),
+        ("render_sharded make_mesh(1) scene1 200x112 16spp depth 20",
+         sharded(False), "none"),
+        ("render_sharded(differentiable=True) make_mesh(1) scene1 200x112 "
+         "16spp depth 20", sharded(True), "none")]
+    out = {}
+    for name, fn, mode in cases:
+        g_img, g_l, g_c, g_wall, _, _ = on_lockstep_route(fn, False)
+        e_img, e_l, e_c, e_wall, _, _ = on_lockstep_route(fn, True)
+        equal = bool(torch.equal(g_img.view(torch.int32),
+                                 e_img.view(torch.int32)))
+        log(f"lockstep routes {name}: graph vs eager bit-equal {equal}; "
+            f"launches {g_l}; graph route {g_c} ({g_wall:.3f} s); eager "
+            f"route bounces {e_c['bounces']}, host reads {e_c['syncs']}, "
+            f"replays {e_c['replays']} ({e_wall:.3f} s)")
+        assert equal, f"phase 23: {name}: the routes' images differ"
+        assert g_l == e_l, name
+        assert (g_c["bounces"], g_c["syncs"]) == (e_c["bounces"],
+                                                  e_c["syncs"]), name
+        assert g_c["replays"] > 0 and e_c["replays"] == e_c["captures"] == 0
+        if mode is None:
+            assert sum(g_l.values()) == 0, name
+        else:
+            assert g_l[mode] > 0, name
+        out[name] = {"bit_equal": equal,
+                     "launches": g_l[mode] if mode else 0,
+                     "bounces": g_c["bounces"], "syncs": g_c["syncs"],
+                     "captures": g_c["captures"],
+                     "replays": g_c["replays"]}
+    return out
+
+
+def lockstep_frame(dev, card):
+    """Phase 23 (b): scene 1 at 1200x675, depth 20, spp cut to 4, through
+    ``render`` on both routes in the order graph, eager, graph, then one
+    frame of each under ``torch.profiler``.  Returns its record."""
+    world, cam = sc.random_spheres()
+    data, meta = world.compile()
+    cam = cam.replace(sqrt_spp=2)
+    n_paths = cam.image_width * cam.image_height * cam.sqrt_spp ** 2
+
+    def frame(eager):
+        return render(data, meta, cam, seed=SEED, _eager=eager)
+
+    runs = {False: [], True: []}
+    for eager in (False, True, False):
+        img, launches, counts, wall, peak, reserved = on_lockstep_route(
+            frame, eager)
+        runs[eager].append((img, launches, counts, wall, peak, reserved))
+        log(f"lockstep routes scene1 {cam.image_width}x{cam.image_height} @ "
+            f"{cam.sqrt_spp ** 2}spp depth {cam.bounce_limit}, "
+            f"{'eager' if eager else 'graph'}: wall {wall:.3f} s, "
+            f"{n_paths / wall:.1f} paths/s, peak allocated "
+            f"{peak / 2 ** 30:.4f} GiB, reserved {reserved / 2 ** 30:.4f} "
+            f"GiB, launches {launches}, lockstep graphs {counts} | {card}")
+    first = runs[True][0]
+    for img, launches, counts, _, _, _ in runs[False]:
+        assert launches == first[1], "phase 23: the routes' launches differ"
+        assert (counts["bounces"], counts["syncs"]) == (
+            first[2]["bounces"], first[2]["syncs"])
+        assert torch.equal(img.view(torch.int32),
+                           first[0].view(torch.int32)), \
+            "phase 23: scene 1's graph and eager images differ"
+    assert bool(torch.isfinite(first[0]).all()), "non-finite pixels"
+    assert runs[False][1][2]["captures"] == 0 < runs[False][1][2]["replays"]
+    rec = {"config": f"{cam.image_width}x{cam.image_height} "
+                     f"{cam.sqrt_spp ** 2}spp depth {cam.bounce_limit}",
+           "bit_equal": True, "launches": first[1]["none"],
+           "bounces": first[2]["bounces"], "host_syncs": first[2]["syncs"]}
+    for eager, key in ((False, "graph"), (True, "eager")):
+        r = runs[eager]
+        rec[key] = {"wall_s": [x[3] for x in r],
+                    "paths_per_s": [n_paths / x[3] for x in r],
+                    "captures": [x[2]["captures"] for x in r],
+                    "replays": [x[2]["replays"] for x in r],
+                    "capture_s": [x[2]["capture_s"] for x in r],
+                    "peak_gib": [x[4] / 2 ** 30 for x in r],
+                    "reserved_gib": [x[5] / 2 ** 30 for x in r]}
+    del runs, first
+    bounces = rec["bounces"]
+    for eager, key in ((False, "graph"), (True, "eager")):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            _, _, _, p_wall, _, _ = on_lockstep_route(frame, eager)
+        t0 = time.perf_counter()
+        _, busy_us, n_kernels, _ = device_times(prof)
+        summarise = time.perf_counter() - t0
+        del prof
+        assert busy_us > 0, f"lockstep {key}: the profiler saw no device time"
+        # a replayed frame on the graph route (its second run)
+        wall = rec[key]["wall_s"][0 if eager else 1]
+        rec[key].update(busy_s=busy_us / 1e6,
+                        idle_share=1 - busy_us / 1e6 / wall,
+                        kernels=n_kernels,
+                        kernels_per_bounce=n_kernels / bounces)
+        log(f"lockstep routes scene1 profiled frame, {key}: device busy "
+            f"{busy_us / 1e6:.4f} s, idle share {1 - busy_us / 1e6 / wall:.4f}"
+            f" of the unprofiled wall {wall:.3f} s (profiled "
+            f"{p_wall:.3f} s), {n_kernels} device kernels = "
+            f"{n_kernels / bounces:.1f} a bounce step ({bounces} steps); "
+            f"summarised in {summarise:.1f} s | {card}")
+    g, e = rec["graph"], rec["eager"]
+    log(f"lockstep routes scene1: wall graph "
+        f"{', '.join(f'{w:.3f}' for w in g['wall_s'])} s (first call "
+        f"capture {g['capture_s'][0]:.4f} s), eager {e['wall_s'][0]:.3f} s;"
+        f" idle share graph {g['idle_share']:.4f}, eager "
+        f"{e['idle_share']:.4f}; kernels a bounce step graph "
+        f"{g['kernels_per_bounce']:.1f}, eager {e['kernels_per_bounce']:.1f};"
+        f" {bounces} bounce steps, {rec['host_syncs']} host reads, "
+        f"{rec['launches']} none launches on both routes; images bit-equal"
+        f" | {card}")
+    return rec
+
+
+def lockstep_graph_phase(dev, card):
+    """Phase 23: the lockstep forward's CUDA graphs against its eager
+    route.  Returns the ``{"lockstep_graph": ...}`` record: (a) the
+    bit-equality set, (b) scene 1 at 1200x675, 4 spp, depth 20, and the
+    lockstep counts of the main paths of phases 11 and 17."""
+    t0 = time.perf_counter()
+    rec = {"bit_equal": lockstep_routes_bit_equal(dev)}
+    log(f"phase 23 (a) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rec["scene1"] = lockstep_frame(dev, card)
+    log(f"phase 23 (b) took {time.perf_counter() - t0:.1f} s")
+    rec["main_paths"] = dict(LOCK_GRAPHS)
+    for name, counts in LOCK_GRAPHS.items():
+        log(f"lockstep graphs of the main path {name}: {counts}")
     return rec
 
 
@@ -2711,7 +2951,11 @@ def main():
 
     # ---- 22. the train step's CUDA graph against the eager step ----
     step_graph = step_graph_phase(dev, card)
-    phase_done(22, t_phase, t_start)
+    t_phase = phase_done(22, t_phase, t_start)
+
+    # ---- 23. the lockstep forward's CUDA graphs against its eager route
+    lockstep_graph = lockstep_graph_phase(dev, card)
+    phase_done(23, t_phase, t_start)
 
     launches = {"none": counts9["none"], "bvh": counts16m["bvh"],
                 "cull": counts9c["cull"], "bwd": counts10["bwd"],
@@ -2731,6 +2975,7 @@ def main():
         f"{json.dumps(tools['config5_launches'])}, bench scene 5 and --grad "
         f"{json.dumps(tools['bench_launches'])}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"lockstep_graph": lockstep_graph}))
     log(json.dumps({"step_graph": step_graph}))
     log(json.dumps({"span_graph": span_graph}))
     log(json.dumps({"tools": tools}))

@@ -22,7 +22,6 @@ counts it, so an entry point can report the collectives it ran.
 
 from __future__ import annotations
 
-import dataclasses
 import functools
 import os
 import socket
@@ -38,9 +37,13 @@ from ..device import require_cuda
 from ..rng import DEFAULT_SEED
 from ..scene.build import SceneData, SceneMeta
 from ..render import closest_hit as ch
-from ..render.graphs import capture, graph_route as _graph_route
+from ..render.graphs import (
+    capture, cloned, graph_route as _graph_route, tensors,
+)
 from ..render.intersect import quad_frames
-from ..render.renderer import _pick_ray_batch, radiance_for_pixels
+from ..render.renderer import (
+    _pick_ray_batch, radiance_batches, radiance_for_pixels,
+)
 
 
 @dataclass(eq=False)
@@ -165,14 +168,20 @@ def _padded_pixels(W, H, n_shards):
 
 
 def render_sharded(data: SceneData, meta: SceneMeta, cam: Camera, mesh: Mesh,
-                   seed=DEFAULT_SEED, chunk=512, differentiable=False):
+                   seed=DEFAULT_SEED, chunk=512, differentiable=False,
+                   _eager=False):
     """Render with pixels sharded over ``mesh``; returns the [H, W, 3]
     numpy image (row 0 = bottom) on every rank.
 
     Rank r renders the r-th contiguous block of the padded pixel ids
-    (``_padded_pixels``) through the lockstep ``radiance_for_pixels``, in
+    (``_padded_pixels``) through the lockstep ``radiance_batches``, in
     batches of ``_pick_ray_batch``; one all-reduce of a zero-filled image
-    (each pixel comes from one rank) gathers the blocks."""
+    (each pixel comes from one rank) gathers the blocks, after the
+    replays, outside the graphs (gloo cannot be captured).  On a card the
+    block replays the lockstep's CUDA graphs, the counterpart of the JAX
+    package's jitted ``_sharded_radiance``; ``differentiable`` runs every
+    bounce (the image is detached either way).  ``_eager`` (private to the
+    card tests and chip_smoke.py) takes the eager route."""
     device = check_mesh(mesh)
     W, H = cam.image_width, cam.image_height
     n, sid = mesh.size, mesh.rank
@@ -181,11 +190,11 @@ def render_sharded(data: SceneData, meta: SceneMeta, cam: Camera, mesh: Mesh,
     pix = torch.from_numpy(pix[sid * per:(sid + 1) * per]).to(device,
                                                                 torch.int64)
     data, cam = data.to(device), cam.to(device)
-    B = min(_pick_ray_batch(meta, per), per)
     with torch.set_grad_enabled(differentiable):
-        block = torch.cat([radiance_for_pixels(
-            data, meta, cam, int(seed), pix[s0:s0 + B], chunk=chunk,
-            differentiable=differentiable) for s0 in range(0, per, B)])
+        block = radiance_batches(data, meta, cam, int(seed), pix,
+                                 min(_pick_ray_batch(meta, per), per),
+                                 chunk=chunk, differentiable=differentiable,
+                                 eager=_eager)
     fb = torch.zeros((n * per, 3), dtype=torch.float32, device=device)
     fb[sid * per:(sid + 1) * per] = block.detach()
     _all_reduce(mesh, fb, "gather")
@@ -221,32 +230,6 @@ def _extract_diff(data: SceneData) -> dict:
 
 def _merge_diff(data: SceneData, diff: dict) -> SceneData:
     return data.replace(**diff)
-
-
-def _tensors(obj) -> list:
-    """Every tensor of the dataclass ``obj`` (a ``SceneData`` or a
-    ``Camera``) in field order, tuples of tensors flattened."""
-    out = []
-    for f in dataclasses.fields(obj):
-        v = getattr(obj, f.name)
-        if isinstance(v, tuple):
-            out += [x for x in v if isinstance(x, torch.Tensor)]
-        elif isinstance(v, torch.Tensor):
-            out.append(v)
-    return out
-
-
-def _cloned(obj):
-    """``obj`` (a ``SceneData`` or a ``Camera``) with every tensor
-    cloned."""
-    kw = {}
-    for f in dataclasses.fields(obj):
-        v = getattr(obj, f.name)
-        if isinstance(v, tuple):
-            kw[f.name] = tuple(x.clone() for x in v)
-        elif isinstance(v, torch.Tensor):
-            kw[f.name] = v.clone()
-    return obj.replace(**kw)
 
 
 def make_train_step(meta: SceneMeta, mesh: Mesh | None = None, device=None,
@@ -360,16 +343,16 @@ def make_train_step(meta: SceneMeta, mesh: Mesh | None = None, device=None,
         data_dev, cam_dev, target, pix, off_axis = ops
         key = ((cam_dev.image_width, cam_dev.image_height, cam_dev.sqrt_spp,
                 cam_dev.bounce_limit), off_axis,
-               tuple(tuple(t.shape) for t in _tensors(data_dev)))
+               tuple(tuple(t.shape) for t in tensors(data_dev)))
         if graph.get("key") != key:
             if graph:
                 graph.pop("graph").reset()
                 step_graph_count["recaptures"] += 1
             graph.clear()
-            data = _cloned(data_dev)
+            data = cloned(data_dev)
             leaves = {k: v.requires_grad_()
                       for k, v in _extract_diff(data).items()}
-            static = (data, leaves, _cloned(cam_dev), target.clone(),
+            static = (data, leaves, cloned(cam_dev), target.clone(),
                       pix.clone(), torch.full((), seed, dtype=torch.int64,
                                               device=device), off_axis)
             out = {}
@@ -386,9 +369,9 @@ def make_train_step(meta: SceneMeta, mesh: Mesh | None = None, device=None,
         data, _leaves, cam_s, target_s, pix_s, seed_s, _ = graph["static"]
         with torch.no_grad():
             if not hit:
-                for dst, src in zip(_tensors(data) + _tensors(cam_s)
+                for dst, src in zip(tensors(data) + tensors(cam_s)
                                     + [target_s, pix_s],
-                                    _tensors(data_dev) + _tensors(cam_dev)
+                                    tensors(data_dev) + tensors(cam_dev)
                                     + [target, pix]):
                     dst.copy_(src)
             seed_s.fill_(seed)

@@ -1,7 +1,8 @@
 """Captured device programs: the port's counterpart of ``jax.jit``.
 
-A wavefront round (``wavefront._span_core``) and a train step
-(``parallel.sharding.make_train_step``) each run once eagerly on a card,
+A wavefront round (``wavefront._span_core``), a train step
+(``parallel.sharding.make_train_step``) and a lockstep sample's start and
+bounce (``renderer.radiance_batches``) each run once eagerly on a card,
 which builds or loads the kernel library and does torch's lazy
 initialisation, and are then captured once into a ``torch.cuda.CUDAGraph``
 and replayed.  A replay reads and writes the addresses the capture saw,
@@ -12,6 +13,7 @@ serves the constants).
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import time
 
@@ -60,3 +62,46 @@ def capture(fn, dev: torch.device, counts: dict):
         counts["replays"] += 1
 
     return graph, replay
+
+
+def tensors(obj) -> list:
+    """Every tensor of ``obj`` in order: ``obj`` a tensor, a dataclass (its
+    fields in order) or a tuple, nested; any other value holds none."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if dataclasses.is_dataclass(obj):
+        return [t for f in dataclasses.fields(obj)
+                for t in tensors(getattr(obj, f.name))]
+    if isinstance(obj, tuple):
+        return [t for x in obj for t in tensors(x)]
+    return []
+
+
+def cloned(obj):
+    """``obj`` (as in ``tensors``) with every tensor cloned, detached: a
+    static copy that a captured graph can read while the caller's tensors
+    change or go."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().clone()
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: cloned(getattr(obj, f.name))
+            for f in dataclasses.fields(obj)})
+    if isinstance(obj, tuple):
+        items = [cloned(x) for x in obj]
+        return type(obj)(*items) if hasattr(obj, "_fields") else tuple(items)
+    return obj
+
+
+def layout(obj):
+    """What a graph captured over ``obj`` (as in ``tensors``) fixes besides
+    its tensors' values: each tensor's shape and dtype, every other
+    value."""
+    if isinstance(obj, torch.Tensor):
+        return tuple(obj.shape), obj.dtype
+    if dataclasses.is_dataclass(obj):
+        return tuple(layout(getattr(obj, f.name))
+                     for f in dataclasses.fields(obj))
+    if isinstance(obj, tuple):
+        return tuple(layout(x) for x in obj)
+    return obj

@@ -26,7 +26,7 @@ from ..camera import Camera
 from ..device import require_cuda
 from ..rng import DEFAULT_SEED
 from ..scene.build import SceneData, SceneMeta
-from .renderer import _pick_ray_batch, radiance_for_pixels
+from .renderer import _pick_ray_batch, radiance_batches
 
 
 @dataclasses.dataclass
@@ -77,10 +77,13 @@ def render_progressive(data: SceneData, meta: SceneMeta, cam: Camera,
                        state: RenderState | None = None,
                        checkpoint_path: str | None = None,
                        checkpoint_every=1, chunk=512, on_step=None,
-                       device=None):
+                       device=None, _eager=False):
     """Render in sample-steps on the lockstep path
-    (``renderer.radiance_for_pixels``, pixels in batches of
-    ``_pick_ray_batch``), optionally checkpointing after each.
+    (``renderer.radiance_batches``, pixels in batches of
+    ``_pick_ray_batch``), optionally checkpointing after each.  On a card
+    each step replays the lockstep's CUDA graphs, the counterpart of the
+    JAX package's jitted ``_step`` (``_eager``, private to the card tests
+    and chip_smoke.py, takes the eager route).
 
     Returns the final RenderState; ``state.fb`` is the NaN-scrubbed mean
     image once all spp are accumulated."""
@@ -94,18 +97,16 @@ def render_progressive(data: SceneData, meta: SceneMeta, cam: Camera,
         samples_per_step = max(1, cam.sqrt_spp)
     state = _start(cam, seed, state)
     B = min(_pick_ray_batch(meta, WH), WH)
+    pix = torch.arange(WH, dtype=torch.int64, device=device)
     step_idx = 0
     while state.samples_done < spp:
         n = min(samples_per_step, spp - state.samples_done)
         with torch.no_grad():
-            parts = [radiance_for_pixels(
-                data, meta, cam, int(seed),
-                torch.arange(s0, min(s0 + B, WH), dtype=torch.int64,
-                             device=device),
-                chunk=chunk, sample_offset=state.samples_done,
-                n_samples=int(n))
-                for s0 in range(0, WH, B)]
-        acc = torch.cat(parts).cpu().numpy().reshape(H, W, 3)
+            acc = radiance_batches(data, meta, cam, int(seed), pix, B,
+                                   chunk=chunk,
+                                   sample_offset=state.samples_done,
+                                   n_samples=int(n), eager=_eager)
+        acc = acc.cpu().numpy().reshape(H, W, 3)
         state.fb = state.fb + acc
         state.samples_done += n
         step_idx += 1

@@ -12,6 +12,7 @@ reference renders into a bottom-up GL buffer); image writers flip.
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import numpy as np
 import torch
@@ -20,7 +21,14 @@ from ..camera import Camera, derive_basis
 from ..device import require_cuda
 from ..rng import DEFAULT_SEED
 from ..scene.build import SceneData, SceneMeta
-from .integrator import prepack, trace
+from . import closest_hit as ch
+from .graphs import (
+    capture, cloned, graph_route as _graph_route, layout, tensors,
+)
+from .integrator import (
+    bounce_once, lockstep_graph_count, make_lanes, prepack, start_sample,
+    trace,
+)
 from .intersect import quad_frames
 
 
@@ -63,32 +71,179 @@ def radiance_for_pixels(data: SceneData, meta: SceneMeta, cam: Camera,
     a tensor from host data once the closest-hit library is loaded and the
     ``device.constant``s exist, so a CUDA graph can capture the call
     (``parallel.sharding.make_train_step``)."""
-    spp = cam.sqrt_spp * cam.sqrt_spp
-    if n_samples is None:
-        n_samples = spp
     if use_kernel is None:
         use_kernel = pixel_ids.device.type == "cuda"
-    basis = derive_basis(cam)
     qf = quad_frames(data)
     prepacked = prepack(data, meta, qf, use_kernel, accel, off_axis)
-    P = pixel_ids.shape[0]
-    acc = torch.zeros((P, 3), dtype=torch.float32, device=pixel_ids.device)
-    for s in range(sample_offset, sample_offset + n_samples):
+    return _radiance(data, meta, qf, cam, derive_basis(cam), prepacked, seed,
+                     pixel_ids, chunk, differentiable,
+                     _samples(cam, sample_offset, n_samples))
+
+
+def _samples(cam: Camera, sample_offset, n_samples) -> range:
+    """The sample ids of a call: ``n_samples`` (None: all sqrt_spp^2) from
+    ``sample_offset``."""
+    if n_samples is None:
+        n_samples = cam.sqrt_spp * cam.sqrt_spp
+    return range(sample_offset, sample_offset + n_samples)
+
+
+def _radiance(data, meta, qf, cam, basis, prepacked, seed, pixel_ids, chunk,
+              differentiable, samples):
+    """``radiance_for_pixels``' sample loop over a packed scene (eager)."""
+    acc = torch.zeros((pixel_ids.shape[0], 3), dtype=torch.float32,
+                      device=pixel_ids.device)
+    for s in samples:
         sample_ids = torch.full_like(pixel_ids, s)
         acc = acc + trace(data, meta, qf, cam, basis, seed, pixel_ids,
                           sample_ids, prepacked, chunk=chunk,
                           differentiable=differentiable)
     # the mean uses pixel_samples_scale = 1/sqrt_spp^2 (camera.cuh:52), so
     # partial accumulations sum to the reference estimator
-    return acc * (1.0 / spp)
+    return acc * (1.0 / (cam.sqrt_spp * cam.sqrt_spp))
+
+
+# the lockstep units' capture, counted in ``lockstep_graph_count`` (a test
+# puts a stand-in here)
+_capture = functools.partial(capture, counts=lockstep_graph_count)
+# the captured units of the current graph key: "key", "lanes" (the static
+# operands), and by unit name ("start", "bounce") "bodies" and "captured"
+# (graph, replay)
+_graphs = {}
+
+
+def _on_graph_route(dev: torch.device, eager: bool) -> bool:
+    """On a card, unless ``eager`` or a stream is capturing: a call made
+    inside another capture (``make_train_step``'s) stays in that one."""
+    return (_graph_route(dev, eager)
+            and not torch.cuda.is_current_stream_capturing())
+
+
+def _run(name: str, dev: torch.device) -> None:
+    """Replay the captured unit ``name``; on its key's first call, run it
+    eagerly on the static operands (part of the call's result) and capture
+    it."""
+    captured = _graphs["captured"].get(name)
+    if captured is not None:
+        captured[1]()
+        return
+    body = _graphs["bodies"][name]
+    body()
+    _graphs["captured"][name] = _capture(body, dev)
+
+
+def radiance_batches(data: SceneData, meta: SceneMeta, cam: Camera,
+                     seed: int, pixel_ids, batch: int, chunk=512,
+                     differentiable=False, sample_offset=0, n_samples=None,
+                     use_kernel=None, accel=None, eager=False):
+    """``radiance_for_pixels`` of the flat pixel ids ``pixel_ids`` [P] ->
+    [P, 3], in batches of ``batch`` pixels (the last padded by repeating
+    its last id: lanes are independent, so real lanes keep their bits and
+    every batch has one shape), the scene packed once for all: the
+    lockstep forward of ``render``, ``render_progressive`` and
+    ``render_sharded``.
+
+    On a card it is the counterpart of the JAX package's jitted
+    ``_render_flat``, progressive ``_step`` and ``_sharded_radiance``, two
+    captured units replayed from CUDA graphs (``integrator.start_sample``
+    and ``integrator.bounce_once`` over static ``integrator.Lanes``).  For
+    each batch and sample the host replays "start", then, for at most
+    ``cam.bounce_limit`` bounces, reads ``alive.any()`` and stops once it
+    is false, else replays "bounce": the eager route's bounces and its one
+    host read a bounce, so its closest-hit launches too.  The sum over
+    samples is one eager add a sample.  With ``differentiable`` (which
+    ``render_sharded`` passes through; its result is a detached image)
+    every bounce runs with no read, as the eager differentiable loop does.
+
+    The first call of a graph key runs its first start and bounce eagerly
+    on the static operands (building or loading the kernel library, torch's
+    lazy initialisation) and captures each (``render.graphs.capture``);
+    later calls copy the scene, camera and pack into the static operands,
+    the seed into its int64 device scalar and each batch into the pixel
+    ids, and replay.  The key: the device, ``meta``, ``batch``, ``chunk``,
+    ``closest_hit.aaq_off_axis`` (one host read a call on "none") and the
+    layout of the scene, the camera and the pack (shapes, the camera's
+    static fields, the route and accel mode; "cull"'s and "bvh"'s tables
+    depend on the data).  A new key drops the old graphs and captures
+    again.  Results are fresh tensors.  A failed capture or replay raises.
+
+    Eager, as ``radiance_for_pixels`` per batch: the CPU, ``eager`` (the
+    card tests and chip_smoke.py compare the routes with it; ``render``
+    passes it for ``differentiable=True``, whose result carries autograd
+    history) and a call made while a stream is capturing.
+    ``lockstep_graph_count`` counts bounces and host reads on both routes
+    (without ``differentiable``), and captures, recaptures, replays and
+    capture seconds."""
+    dev = pixel_ids.device
+    if use_kernel is None:
+        use_kernel = dev.type == "cuda"
+    if use_kernel and accel is None:
+        accel = ch.auto_accel(meta.n_spheres + meta.n_quads)
+    samples = _samples(cam, sample_offset, n_samples)
+    qf = quad_frames(data)
+    off_axis = None
+    if use_kernel and accel == "none":
+        with torch.no_grad():
+            off_axis = ch.aaq_off_axis(meta, ch.quad_records(data, qf))
+    ops = (data, qf, cam, derive_basis(cam),
+           prepack(data, meta, qf, use_kernel, accel, off_axis))
+    P = pixel_ids.shape[0]
+    pad = -P % batch
+    if pad:
+        pixel_ids = torch.cat([pixel_ids, pixel_ids[-1:].expand(pad)])
+    batches = pixel_ids.split(batch)
+    if not _on_graph_route(dev, eager):
+        data, qf, cam, basis, prepacked = ops
+        return torch.cat([_radiance(data, meta, qf, cam, basis, prepacked,
+                                    seed, pix, chunk, differentiable, samples)
+                          for pix in batches])[:P]
+    key = (dev, meta, batch, chunk, off_axis, layout(ops))
+    with torch.no_grad():
+        if _graphs.get("key") != key:
+            if _graphs:
+                for graph, _ in _graphs["captured"].values():
+                    graph.reset()
+                lockstep_graph_count["recaptures"] += 1
+            _graphs.clear()
+            st = make_lanes(*cloned(ops), batch)
+            _graphs.update(key=key, lanes=st, captured={}, bodies={
+                "start": functools.partial(start_sample, st),
+                "bounce": functools.partial(bounce_once, st, meta, chunk)})
+        else:
+            st = _graphs["lanes"]
+            for dst, src in zip(tensors(
+                    (st.data, st.qf, st.cam, st.basis, st.prepacked)),
+                    tensors(ops)):
+                dst.copy_(src)
+        st.seed.fill_(int(seed) & 0xFFFFFFFF)
+        out = []
+        for pix in batches:
+            st.pixel.copy_(pix)
+            acc = torch.zeros((batch, 3), dtype=torch.float32, device=dev)
+            for s in samples:
+                st.sample.fill_(s)
+                _run("start", dev)
+                for _ in range(cam.bounce_limit):
+                    if not differentiable:
+                        lockstep_graph_count["syncs"] += 1
+                        if not bool(st.alive.any()):
+                            break
+                        lockstep_graph_count["bounces"] += 1
+                    _run("bounce", dev)
+                acc = acc + st.L.to_rows()
+            out.append(acc * (1.0 / (cam.sqrt_spp * cam.sqrt_spp)))
+    return torch.cat(out)[:P]
 
 
 def render(data: SceneData, meta: SceneMeta, cam: Camera, seed=DEFAULT_SEED,
            ray_batch=None, chunk=512, differentiable=False, use_kernel=None,
-           device=None):
+           device=None, _eager=False):
     """Render the scene on ``device`` (None: the card, ``require_cuda``);
     returns the linear radiance image [H, W, 3] float32 (row 0 = bottom).
-    Without ``differentiable`` the render runs under ``torch.no_grad``."""
+    Without ``differentiable`` the render runs under ``torch.no_grad`` and,
+    on a card, replays the lockstep's CUDA graphs (``radiance_batches``;
+    ``_eager``, private to the card tests and chip_smoke.py, takes the
+    eager route)."""
     device = require_cuda() if device is None else torch.device(device)
     data = data.to(device)
     cam = cam.to(device)
@@ -96,18 +251,14 @@ def render(data: SceneData, meta: SceneMeta, cam: Camera, seed=DEFAULT_SEED,
     WH = W * H
     if ray_batch is None:
         ray_batch = _pick_ray_batch(meta, WH)
-    B = min(int(ray_batch), WH)
-    n_batches = -(-WH // B)
     grad = contextlib.nullcontext() if differentiable else torch.no_grad()
     with grad:
-        parts = []
-        for i in range(n_batches):
-            pix = torch.arange(B, dtype=torch.int64, device=device) + i * B
-            pix = torch.clamp(pix, max=WH - 1)  # the tail repeats a pixel
-            parts.append(radiance_for_pixels(
-                data, meta, cam, int(seed), pix, chunk=chunk,
-                differentiable=differentiable, use_kernel=use_kernel))
-        fb = torch.cat(parts)[:WH]
+        fb = radiance_batches(
+            data, meta, cam, int(seed),
+            torch.arange(WH, dtype=torch.int64, device=device),
+            min(int(ray_batch), WH), chunk=chunk,
+            differentiable=differentiable, use_kernel=use_kernel,
+            eager=_eager or differentiable)
         # NaN scrub (camera.cuh:196-198)
         fb = torch.where(torch.isnan(fb), 0.0, fb)
     return fb.reshape(H, W, 3)

@@ -1,6 +1,6 @@
 """The CUDA closest-hit kernel against its plain version, on the card,
-and the wavefront spans' and the train step's CUDA graphs against their
-eager routes.
+and the wavefront spans', the train step's and the lockstep forward's
+CUDA graphs against their eager routes.
 
 Marked ``cuda``: without a card every test skips.  Imports no jax, so on a
 machine without jax it runs without the repository's conftest:
@@ -941,3 +941,161 @@ def test_step_graph_results_are_fresh(dev):
     second = step(data, cam, target, 3)
     assert _same_bits(first, kept)
     assert not _same_bits(first, second)
+
+
+def _lockstep_routes(fn):
+    """``fn(eager)`` on the lockstep graph route, then the eager one: for
+    each its result, the closest-hit launches and the lockstep graph
+    counts it added; the two results bit-equal, with the same launches,
+    bounces and host reads, and no capture or replay on the eager
+    route."""
+    from mort_tpu_torch.render.integrator import lockstep_graph_count
+
+    runs = []
+    for eager in (False, True):
+        torch.cuda.synchronize()
+        launches, counts = dict(ch.launch_count), dict(lockstep_graph_count)
+        res = fn(eager)
+        torch.cuda.synchronize()
+        runs.append((torch.as_tensor(res), {
+            k: ch.launch_count[k] - n for k, n in launches.items()}, {
+            k: lockstep_graph_count[k] - n for k, n in counts.items()}))
+    (g, g_l, g_c), (e, e_l, e_c) = runs
+    assert g.shape == e.shape and torch.equal(
+        g.view(torch.int32), e.view(torch.int32))
+    assert g_l == e_l, (g_l, e_l)
+    assert (g_c["bounces"], g_c["syncs"]) == (e_c["bounces"], e_c["syncs"])
+    assert e_c["captures"] == e_c["replays"] == 0
+    assert g_c["replays"] > 0
+    return g, g_l, g_c
+
+
+@pytest.mark.parametrize("accel", ["none", "cull", "bvh"])
+def test_lockstep_graph_equals_eager_scene9(dev, accel):
+    """The lockstep forward of ``render`` (``radiance_batches``) on scene 9
+    at 48x48, 4 spp, depth 4 in batches of 1000 pixels (a short tail)
+    through each closest-hit mode: the captured units against the eager
+    route, bit for bit with the same launches (one a bounce step); a
+    second call at another seed replays with no capture."""
+    from mort_tpu_torch.render.renderer import radiance_batches
+
+    world, cam = sc.final_scene(400, 250, 4)
+    data, meta = world.compile()
+    data = data.to(dev)
+    cam = cam.replace(image_width=48, image_height=48, sqrt_spp=2).to(dev)
+    pix = torch.arange(48 * 48, device=dev)
+
+    def fn(seed):
+        return lambda eager: radiance_batches(data, meta, cam, seed, pix,
+                                              1000, accel=accel, eager=eager)
+
+    for seed in (9, 10):
+        _, launches, counts = _lockstep_routes(fn(seed))
+        assert launches[accel] == counts["bounces"] > 0, (launches, counts)
+        assert counts["captures"] == (2 if seed == 9 else 0), counts
+
+
+def test_lockstep_graph_equals_eager_intersect_best(dev):
+    """``render(use_kernel=False)`` on the Cornell box at 32x32, 4 spp,
+    depth 8: the graph route against the eager route, no kernel launch."""
+    from mort_tpu_torch import render
+
+    world, cam = sc.cornell_box()
+    data, meta = world.compile()
+    cam = cam.replace(image_width=32, image_height=32, sqrt_spp=2,
+                      bounce_limit=8)
+    _, launches, counts = _lockstep_routes(lambda eager: render(
+        data, meta, cam, seed=5, use_kernel=False, _eager=eager))
+    assert sum(launches.values()) == 0 and counts["bounces"] > 0
+
+
+def test_lockstep_graph_progressive_resume(dev, tmp_path):
+    """``render_progressive`` on the Cornell box at its own 600x600 (three
+    batches of 2^17 pixels, the last short), 4 spp, depth 8, in steps of 3
+    and 1 samples: the graph route against the eager route; then
+    interrupted after its first step and resumed from the checkpoint, bit
+    for bit the uninterrupted render."""
+    from mort_tpu_torch.render.progressive import (
+        load_state, render_progressive,
+    )
+
+    world, cam = sc.cornell_box()
+    data, meta = world.compile()
+    cam = cam.replace(sqrt_spp=2, bounce_limit=8)
+    full, launches, _ = _lockstep_routes(lambda eager: render_progressive(
+        data, meta, cam, samples_per_step=3, _eager=eager).fb)
+    assert launches["none"] > 0
+    ckpt = str(tmp_path / "lock.npz")
+
+    class Stop(BaseException):
+        pass
+
+    def stop(state):
+        raise Stop
+
+    with pytest.raises(Stop):
+        render_progressive(data, meta, cam, samples_per_step=3,
+                           checkpoint_path=ckpt, on_step=stop)
+    state = load_state(ckpt)
+    assert state.samples_done == 3
+    resumed = render_progressive(data, meta, cam, samples_per_step=3,
+                                 state=state)
+    assert np.array_equal(resumed.fb, full.numpy())
+
+
+@pytest.mark.parametrize("differentiable", [False, True])
+def test_lockstep_graph_render_sharded(dev, differentiable):
+    """``render_sharded`` over ``make_mesh(1)`` (no process group) on scene
+    1 at 64x36, 4 spp, depth 8: the graph route against the eager route;
+    with ``differentiable`` every bounce runs, with no host read."""
+    from mort_tpu_torch import make_mesh, render_sharded
+
+    world, cam = sc.random_spheres()
+    data, meta = world.compile()
+    cam = cam.replace(image_width=64, image_height=36, sqrt_spp=2,
+                      bounce_limit=8)
+    mesh = make_mesh(1)
+    _, launches, counts = _lockstep_routes(lambda eager: render_sharded(
+        data, meta, cam, mesh, seed=5, differentiable=differentiable,
+        _eager=eager))
+    if differentiable:
+        assert launches["none"] == 4 * 8 and counts["syncs"] == 0
+    else:
+        assert launches["none"] == counts["bounces"] > 0
+
+
+def test_train_step_beside_lockstep_graphs(dev):
+    """A train step replayed after a lockstep render and before another:
+    the step replays with no recapture and stays equal to the eager step,
+    and the render replays with no recapture and stays equal to its eager
+    route."""
+    from mort_tpu_torch import make_train_step, render
+    from mort_tpu_torch.parallel import sharding
+    from mort_tpu_torch.render.integrator import lockstep_graph_count
+
+    world, cam = sc.cornell_box()
+    data, meta = world.compile()
+    cam = cam.replace(image_width=16, image_height=16, sqrt_spp=2,
+                      bounce_limit=6)
+    target = render(data, meta, cam, seed=3).cpu().numpy() * 0.9
+    step = make_train_step(meta)
+    eager_step = make_train_step(meta, _eager=True)
+    step(data, cam, target, 7)
+    for seed in (8, 9):
+        lock = dict(lockstep_graph_count)
+        img = render(data, meta, cam, seed=seed)
+        assert lockstep_graph_count["captures"] == lock["captures"]
+        assert lockstep_graph_count["replays"] > lock["replays"]
+        assert torch.equal(img, render(data, meta, cam, seed=seed,
+                                       _eager=True))
+        before = dict(sharding.step_graph_count)
+        got = step(data, cam, target, seed)
+        moved = {k: sharding.step_graph_count[k] - n
+                 for k, n in before.items()}
+        assert moved["captures"] == 0 and moved["replays"] == 1, moved
+        want = eager_step(data, cam, target, seed)
+        torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=0.0)
+        scale = max(float(g.abs().max()) for g in want[1].values())
+        for k, g in got[1].items():
+            torch.testing.assert_close(g, want[1][k], rtol=1e-3,
+                                       atol=1e-5 * scale)
