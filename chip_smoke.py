@@ -86,9 +86,10 @@ Phases, one line each or more (any failure raises and exits non-zero):
    scene 9 at 400x400, depth 4, spp cut from 225 to 16 (the run's time),
    launch counts reset just before and read just after; beside it the same
    config through the auto accel ("none"), in the order none, cull, cull,
-   none, the four images bit-equal; half the frame's tasks (every pixel
-   once) rendered once more under ``torch.profiler`` for the "cull"
-   kernels' share of device time;
+   none, none (the third and fifth replay the span program kept from the
+   run before: 0 captures), the five images bit-equal; half the frame's
+   tasks (every pixel once) rendered once more under ``torch.profiler``
+   for the "cull" kernels' share of device time;
 17. the sharded paths (``parallel/sharding.py``): (a) on a 1-rank NCCL
    group, main path ``render_wavefront(mesh=make_mesh(1))`` on scene 1 at
    its bench config, launch counts reset just before and read just after,
@@ -115,25 +116,34 @@ Phases, one line each or more (any failure raises and exits non-zero):
 19. BASELINE config #5 (``mort_tpu_torch.config5``): final_scene at
    1920x1080 and its depth 40 with spp cut to 1 (the run's time) after a
    4096-task warm-up span, then the train step at its own 480x270, 4 spp,
-   depth 8; launch counts reset just before and read just after;
+   depth 8; launch counts reset just before and read just after; the
+   warm-up span captures the span program, the frame replays it;
 20. the bench entry (``mort_tpu_torch.bench``): scene 5's record (2
    frames) and the ``--grad`` record, each summary line checked for
-   bench.py's four keys;
+   bench.py's four keys; the warm-up span captures, the frames capture
+   nothing;
 21. the spans' CUDA graphs: every wavefront render above (phases 5-8,
-   13, 14, 16, 17, 19) ran each span's rounds after the first as replays
-   of one captured graph (``render_wavefront``'s only route on a card;
-   each main path's replay count is printed and checked); here against
-   the eager rounds (``_span_core``'s private ``eager``): (a) scene 9 at
-   100x100, 16 spp through "none", "bvh" and "cull", spread16k at 160x90
-   and progressive scene 6 at 48x48, over layer-aligned spans, images
-   bit-equal as raw int32, rounds, useful segments, slots and launches
-   equal; (b) scene 1 at 1200x675 with spp and depth cut from 100 and 20
-   to 36 and 8 (the run's time; its scene-9 frames at 400x400, 16 spp,
-   were cut for phase 23), in the order graph, eager, graph: wall, peak
-   memory,
-   host syncs, capture seconds, the same stats and launches, the images by
-   the image rule; then each route's frame once more under
-   ``torch.profiler``: its idle share and kernels a bounce step;
+   13, 14, 16, 17, 19) ran its rounds as replays of one span program
+   kept by graph key across spans and calls (``render_wavefront``'s only
+   route on a card: one capture a key, after the key's one eager round;
+   each main path's captures and replays are printed and checked); here
+   against the eager rounds (``_span_core``'s private ``eager``): (a)
+   scene 9 at 100x100, 16 spp through "none", "bvh" and "cull", spread16k
+   at 160x90 and progressive scene 6 at 48x48, over layer-aligned spans,
+   each from a new key: images bit-equal as raw int32, rounds, useful
+   segments, slots and launches equal, one capture a call; (b) scene 1 at
+   1200x675 with spp and depth cut from 100 and 20 to 36 and 8 (the run's
+   time; its scene-9 frames at 400x400, 16 spp, were cut for phase 23),
+   in the order graph, eager, graph (the second graph frame replays the
+   kept key): wall, peak memory, host syncs, captures, capture seconds,
+   the same stats and launches, the images by the image rule; then each
+   route's frame once more under ``torch.profiler``: its idle share and
+   kernels a bounce step; (c) three frames of one key each on the graph
+   route, scene 9 at 100x100, 16 spp over two layer-aligned spans,
+   spread16k at its own 400x225 and scene 1 at its bench config through
+   ``make_mesh(1)`` (13 spans): 1 capture, then 0 and 0 with no eager
+   round, the three bit-equal; walls, captures, replays and the memory
+   the kept program holds after the third;
 22. the train step's CUDA graph: every train step above (phases 10, 12,
    17, 19, 20) ran its first call eagerly, captured it and replayed the
    graph for every later call (``make_train_step``'s only route on a card;
@@ -1417,7 +1427,8 @@ def main_path(name, world, cam, dev, card, accel=None, profiled=False,
               profile_tasks=None):
     """Drive ``render_wavefront`` once at ``cam``'s config (``accel``: the
     closest-hit mode, None for the auto policy); returns the launch counts
-    per mode, the image and the wall seconds.  ``profiled``: then render
+    per mode, the image, the wall seconds and the span graph counts.
+    ``profiled``: then render
     the same frame, or the task range ``profile_tasks`` (a window, timed
     once unprofiled, whose profile is summarised in a fraction of a whole
     frame's time), once more under ``torch.profiler`` and print the
@@ -1435,8 +1446,11 @@ def main_path(name, world, cam, dev, card, accel=None, profiled=False,
     counts = read_counts()
     graphs = read_graphs(name)
     assert sum(counts.values()) > 0, f"{name}: the kernel never launched"
-    assert graphs["replays"] == stats["iterations"] - graphs["spans"], \
-        f"{name}: a round after a span's first was not a replay: {graphs}"
+    # one capture a key: the key's first round runs eagerly, every later
+    # round (of every span) replays; a kept key captures nothing
+    assert graphs["captures"] <= 1 and graphs["replays"] == \
+        stats["iterations"] - graphs["captures"], \
+        f"{name}: a round after the key's first was not a replay: {graphs}"
     assert img.shape == (cam.image_height, cam.image_width, 3)
     assert bool(torch.isfinite(img).all()), "non-finite pixels"
     mean = float(img.mean())
@@ -1483,7 +1497,7 @@ def main_path(name, world, cam, dev, card, accel=None, profiled=False,
                 f"{m} {us / busy_us:.4f} ({us / 1e3:.3f} ms)"
                 for m, us in modes.items() if us)
             + f" | {card}")
-    return counts, img, wall
+    return counts, img, wall, graphs
 
 
 def key_average_times(prof):
@@ -1590,8 +1604,9 @@ def progressive_main_path(dev, card):
     counts = read_counts()
     graphs = read_graphs("progressive scene6")
     assert counts["none"] > 0, "progressive: the none kernel never launched"
-    assert graphs["captures"] == graphs["spans"] and graphs["replays"] > 0, \
-        f"progressive: {graphs}"
+    # one capture a key over every layer (a span each)
+    assert graphs["captures"] == 1 < graphs["spans"] and \
+        graphs["replays"] == graphs["rounds"] - 1, f"progressive: {graphs}"
     assert full.samples_done == spp and len(steps) == n_layers
     assert np.isfinite(full.fb).all() and 0.01 < float(full.fb.mean()) < 2
 
@@ -1612,8 +1627,11 @@ def progressive_main_path(dev, card):
         pass
     state = load_state(ckpt)
     assert state.samples_done == 2 * PROG_SPT, state.samples_done
+    reset_counts()
     resumed = render_progressive_wavefront(data, meta, cam, seed=SEED,
                                            spt=PROG_SPT, state=state)
+    resumed_graphs = read_graphs()
+    assert resumed_graphs["captures"] == 0, resumed_graphs
     assert np.array_equal(resumed.fb, full.fb), \
         "progressive: the resumed render differs from the uninterrupted one"
     per_layer = np.diff([t0] + steps)
@@ -1624,8 +1642,8 @@ def progressive_main_path(dev, card):
         f"{', '.join(f'{x:.3f}' for x in per_layer)}, "
         f"{n_paths / wall:.1f} paths/s, none launches {counts['none']}, "
         f"span graphs {graphs}; interrupted after 2 layers, resumed from "
-        f"the checkpoint: "
-        f"bit-equal | {card}")
+        f"the checkpoint: bit-equal, span captures of the resumed call "
+        f"{resumed_graphs['captures']} | {card}")
     return counts
 
 
@@ -1715,6 +1733,7 @@ def sharded_runs(mesh, ckpt, resume):
         out[f"wf_{name}_s"] = time.perf_counter() - t0
         out[f"wf_{name}"] = img.cpu().numpy()
         out[f"wf_{name}_launches"] = read_counts()[mode]
+        out[f"wf_{name}_captures"] = read_graphs()["captures"]
         out[f"wf_{name}_useful"] = np.asarray(stats["per_shard_useful"])
         out[f"wf_{name}_collectives"] = sum(stats["collectives"].values())
         out[f"wf_{name}_span_collectives"] = stats["collectives"]["spans"]
@@ -1879,7 +1898,10 @@ def sharded_paths(dev, card, scene1_img, scene1_wall, step_wall):
         counts = read_counts()
         graphs = read_graphs("scene1 1-rank mesh")
         assert counts["none"] > 0, "1-rank mesh: the none kernel never ran"
-        assert graphs["replays"] > 0, f"1-rank mesh: no replay {graphs}"
+        # one capture for the call's 13 layer-aligned spans
+        assert graphs["captures"] == 1 < graphs["spans"] and \
+            graphs["replays"] == graphs["rounds"] - 1, \
+            f"1-rank mesh: {graphs}"
         assert bool(torch.isfinite(img).all()), "non-finite pixels"
         frac, mdiff = assert_images_close(img.cpu().numpy(), scene1_img)
         log(f"main path scene1 1-rank NCCL mesh {cam1.image_width}x"
@@ -2043,13 +2065,17 @@ def sharded_paths(dev, card, scene1_img, scene1_wall, step_wall):
             f"checkpointed after one step on 2 ranks, resumed on 1: "
             f"bit-equal {prog_equal}; launches per rank "
             + "; ".join(f"rank {r}: none {res['wf_scene1_launches']}, bvh "
-                        f"{res['wf_spread16k_launches']}, render_sharded "
+                        f"{res['wf_spread16k_launches']} (span captures "
+                        f"{res['wf_scene1_captures']}, "
+                        f"{res['wf_spread16k_captures']}), render_sharded "
                         f"{res['sharded_launches']} (lockstep replays "
                         f"{res['sharded_replays']}), step none "
                         f"{res['step_launches']} bwd "
                         f"{res['step_bwd_launches']}, progressive "
                         f"{res['prog_launches']}"
                         for r, res in enumerate(two))
+            + f"; 1 rank's span captures {one['wf_scene1_captures']}, "
+            f"{one['wf_spread16k_captures']}"
             + f"; workers {workers_s:.1f} s (rank 0's checks "
             f"{float(two[0]['seconds']):.1f} s), 1-rank side {one_s:.1f} s")
         assert all(wf_equal.values()), wf_equal
@@ -2088,6 +2114,25 @@ CONFIG5_SPP, CONFIG5_WARMUP_TASKS = 1, 4096
 BENCH_LINE_KEYS = {"metric", "value", "unit", "vs_baseline"}
 
 
+@contextlib.contextmanager
+def span_calls(module):
+    """Within it, each call of ``module.render_wavefront`` (a tool's own
+    name for it) appends the span graph counts it added to the list
+    yielded."""
+    calls, fn = [], module.render_wavefront
+
+    def counted(*args, **kw):
+        before = dict(wf.graph_count)
+        res = fn(*args, **kw)
+        calls.append({k: wf.graph_count[k] - n for k, n in before.items()})
+        return res
+    module.render_wavefront = counted
+    try:
+        yield calls
+    finally:
+        module.render_wavefront = fn
+
+
 def parity_phase(dev, card):
     """Phase 18: every config of the parity gate on the card against the
     committed JAX references; fails the run if one fails.  Returns the
@@ -2119,16 +2164,22 @@ def config5_phase(dev, card):
     from mort_tpu_torch import config5
 
     reset_counts()
-    rec = config5.run_device(dev, spp=CONFIG5_SPP,
-                             warmup_tasks=CONFIG5_WARMUP_TASKS, log=log)
+    with span_calls(config5) as calls:
+        rec = config5.run_device(dev, spp=CONFIG5_SPP,
+                                 warmup_tasks=CONFIG5_WARMUP_TASKS, log=log)
     counts = read_counts()
     graphs = read_step_graphs("config5 train step")
     assert counts["none"] > 0 and counts["bwd"] > 0, counts
     assert graphs["captures"] == 1 and graphs["replays"] > 0, graphs
+    # the warm-up span and the frame share one key: the frame replays
+    spans = read_graphs("config5 forward")
+    assert [c["captures"] for c in calls] == [1, 0], calls
     log(f"config5: final_scene 1920x1080 depth {rec['depth']}, spp cut from "
         f"16 to {rec['spp']} for the run's time, warm-up span "
         f"{CONFIG5_WARMUP_TASKS} tasks: {json.dumps(rec)}; launches none "
-        f"{counts['none']}, bwd {counts['bwd']}; step graphs {graphs}")
+        f"{counts['none']}, bwd {counts['bwd']}; step graphs {graphs}; span "
+        f"captures warm-up {calls[0]['captures']}, frame "
+        f"{calls[1]['captures']} (span graphs {spans})")
     return rec, counts
 
 
@@ -2142,16 +2193,21 @@ def bench_phase(dev, card):
     for argv in (["--scene", "5", "--frames", "2"], ["--grad"]):
         out = io.StringIO()
         reset_counts()
-        with contextlib.redirect_stdout(out):
+        with contextlib.redirect_stdout(out), span_calls(bench) as calls:
             (rec,) = bench.main(argv)
         counts.append(read_counts())
         graphs = read_step_graphs(f"bench {' '.join(argv)}")
+        # the warm-up span and the frames share one key: compile_s holds
+        # the capture, the frames replay
+        captures = [c["captures"] for c in calls]
+        assert captures == ([1, 0, 0] if calls else []), captures
         line = json.loads(out.getvalue().strip().splitlines()[-1])
         assert set(line) == BENCH_LINE_KEYS, line
         assert line["unit"] == "paths/s/chip" and line["value"] > 0, line
         log(f"bench {' '.join(argv)}: {json.dumps(rec)}; summary line "
             f"{json.dumps(line)}; launches none {counts[-1]['none']}, bwd "
-            f"{counts[-1]['bwd']}; step graphs {graphs}")
+            f"{counts[-1]['bwd']}; step graphs {graphs}; span captures "
+            f"(warm-up, then each frame) {captures}")
         recs.append(rec)
     assert counts[0]["none"] > 0 and counts[1]["bwd"] > 0, counts
     assert STEP_GRAPHS["bench --grad"]["replays"] > 0, STEP_GRAPHS
@@ -2222,9 +2278,10 @@ def on_route(fn, eager):
 
 def routes_bit_equal(dev):
     """Phase 21 (a): each config through both routes over layer-aligned
-    spans: the images bit-equal (raw int32 views), rounds, useful
-    segments, slots and launches equal, every round after a span's first a
-    replay on the graph route and none on the eager one."""
+    spans, the graph route from a new key: the images bit-equal (raw int32
+    views), rounds, useful segments, slots and launches equal, one capture
+    over the call's spans and every round after the key's first a replay
+    on the graph route, none on the eager one."""
     from mort_tpu_torch.render.progressive import (
         render_progressive_wavefront,
     )
@@ -2258,6 +2315,7 @@ def routes_bit_equal(dev):
               ("progressive scene6 48x48 9spp spt 3", progressive, "none")]
     out = {}
     for name, fn, mode in cases:
+        wf.drop_graph()
         (g_img, g_stats), g_l, g_g, _, _ = on_route(fn, False)
         (e_img, e_stats), e_l, e_g, _, _ = on_route(fn, True)
         equal = bool(torch.equal(g_img.view(torch.int32),
@@ -2268,29 +2326,32 @@ def routes_bit_equal(dev):
         assert equal, f"phase 21: {name}: the routes' images differ"
         assert g_stats == e_stats and g_l == e_l and g_l[mode] > 0, name
         assert g_g["rounds"] == e_g["rounds"] and e_g["replays"] == 0, name
-        assert g_g["captures"] == g_g["spans"], name
-        assert g_g["replays"] == g_g["rounds"] - g_g["spans"] > 0, name
+        assert g_g["captures"] == 1 and g_g["recaptures"] == 0, name
+        assert g_g["replays"] == g_g["rounds"] - 1 > 0, name
         out[name] = {"bit_equal": equal, "launches": g_l[mode],
                      "rounds": g_g["rounds"], "replays": g_g["replays"],
-                     "captures": g_g["captures"]}
+                     "spans": g_g["spans"], "captures": g_g["captures"]}
     return out
 
 
 def routes_frame(name, world, cam, dev, card):
     """Phase 21 (b): one config's frame on both routes in the order graph,
     eager, graph (the eager route, ~4-7x slower, once, between the other's
-    two runs), with the wall, peak memory, rounds, host syncs and capture seconds of
-    each; the same rounds, useful segments and launches on every run, the
-    images by the image rule (over default spans index_add_'s atomic order
-    may differ); then the frame once more on each route under
-    ``torch.profiler``: the device's busy seconds, its idle share of the
-    route's mean unprofiled wall and the kernels a bounce step."""
+    two runs; the second graph frame replays the first's kept capture),
+    with the wall, peak memory, rounds, host syncs, captures and capture
+    seconds of each; the same rounds, useful segments and launches on
+    every run, the images by the image rule (over default spans
+    index_add_'s atomic order may differ); then the frame once more on
+    each route under ``torch.profiler``: the device's busy seconds, its
+    idle share of the route's mean unprofiled wall and the kernels a
+    bounce step."""
     data, meta = world.compile()
 
     def frame():
         return render_wavefront(data, meta, cam, dev, seed=SEED,
                                 return_stats=True)
 
+    wf.drop_graph()
     runs = {False: [], True: []}
     for eager in (False, True, False):
         (img, stats), launches, graphs, wall, peak = on_route(frame, eager)
@@ -2313,8 +2374,8 @@ def routes_frame(name, world, cam, dev, card):
         rec[key] = {
             "wall_s": walls, "peak_gib": max(r[5] for r in runs[eager])
             / 2 ** 30, "host_syncs": runs[eager][0][3]["syncs"],
-            "captures": runs[eager][0][3]["captures"],
-            "replays": runs[eager][0][3]["replays"],
+            "captures": [r[3]["captures"] for r in runs[eager]],
+            "replays": [r[3]["replays"] for r in runs[eager]],
             "capture_s": [r[3]["capture_s"] for r in runs[eager]]}
     del runs
     for eager, key in ((False, "graph"), (True, "eager")):
@@ -2350,15 +2411,95 @@ def routes_frame(name, world, cam, dev, card):
     return rec
 
 
+def kept_memory():
+    """(allocated, reserved) bytes that the kept span program holds: what
+    dropping it frees (``wavefront.drop_graph``: its graph, the graph's
+    memory pool and its static tensors)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    alloc, reserved = torch.cuda.memory_allocated(), \
+        torch.cuda.memory_reserved()
+    wf.drop_graph()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return (alloc - torch.cuda.memory_allocated(),
+            reserved - torch.cuda.memory_reserved())
+
+
+def kept_key_frames(dev, card):
+    """Phase 21 (c): three frames of one key on the graph route, for each
+    of scene 9 at 100x100, 16 spp, depth 4 over its two layer-aligned
+    spans; spread16k at its own 400x225, 4 spp, depth 8 (one chunk a
+    pixel); scene 1 at its bench config through ``make_mesh(1)`` (13
+    layer-aligned spans): the first frame captures once, the second and
+    third capture nothing and run no eager round (every round a replay),
+    and the three are bit-equal (each pixel deposits once a span) with
+    equal stats and launches.  Prints each frame's wall, captures and
+    replays and the memory the kept program holds after the third."""
+    world9, cam9 = sc.final_scene(400, 250, 4)
+    data9, meta9 = world9.compile()
+    cam9 = cam9.replace(image_width=100, image_height=100, sqrt_spp=4)
+    world16, cam16 = sc.spread_spheres()
+    data16, meta16 = world16.compile()
+    world1, cam1 = sc.random_spheres()
+    data1, meta1 = world1.compile()
+    mesh = make_mesh(1)
+    cases = [
+        (f"scene9 100x100 16spp depth {cam9.bounce_limit}", lambda:
+         render_wavefront(data9, meta9, cam9, dev, seed=SEED,
+                          layer_range=(0, 2), return_stats=True)),
+        (f"spread16k {cam16.image_width}x{cam16.image_height} "
+         f"{cam16.sqrt_spp ** 2}spp depth {cam16.bounce_limit}", lambda:
+         render_wavefront(data16, meta16, cam16, dev, seed=SEED,
+                          return_stats=True)),
+        (f"scene1 make_mesh(1) {cam1.image_width}x{cam1.image_height} "
+         f"{cam1.sqrt_spp ** 2}spp depth {cam1.bounce_limit}", lambda:
+         render_wavefront(data1, meta1, cam1, seed=SEED, mesh=mesh,
+                          return_stats=True))]
+    out = {}
+    for name, fn in cases:
+        wf.drop_graph()
+        frames = [on_route(fn, False) for _ in range(3)]
+        (img0, stats0), launches0 = frames[0][0], frames[0][1]
+        for k, ((img, stats), launches, graphs, _, _) in enumerate(frames):
+            assert torch.equal(img.view(torch.int32),
+                               img0.view(torch.int32)), f"{name}: frame {k}"
+            assert stats == stats0 and launches == launches0, name
+            assert graphs["captures"] == (0 if k else 1), (name, graphs)
+            assert graphs["replays"] == graphs["rounds"] - \
+                graphs["captures"] > 0, (name, graphs)
+        alloc, reserved = kept_memory()
+        rec = {"wall_s": [f[3] for f in frames],
+               "captures": [f[2]["captures"] for f in frames],
+               "replays": [f[2]["replays"] for f in frames],
+               "rounds": stats0["iterations"],
+               "spans": frames[0][2]["spans"],
+               "capture_s": frames[0][2]["capture_s"],
+               "peak_gib": [f[4] / 2 ** 30 for f in frames],
+               "kept_allocated_gib": alloc / 2 ** 30,
+               "kept_reserved_gib": reserved / 2 ** 30, "bit_equal": True}
+        out[name] = rec
+        walls = ", ".join(f"{w:.3f}" for w in rec["wall_s"])
+        log(f"kept key {name}: walls {walls} s, captures "
+            f"{rec['captures']}, replays {rec['replays']} of "
+            f"{rec['rounds']} rounds a frame over {rec['spans']} spans, "
+            f"capture {rec['capture_s']:.4f} s; three frames bit-equal; the "
+            f"kept program held {rec['kept_allocated_gib']:.4f} GiB "
+            f"allocated, {rec['kept_reserved_gib']:.4f} GiB reserved after "
+            f"the third; peak {', '.join(f'{p:.4f}' for p in rec['peak_gib'])}"
+            f" GiB | {card}")
+    return out
+
+
 def span_graph_phase(dev, card):
     """Phase 21: the spans' CUDA graphs against the eager rounds.  Returns
     the ``{"span_graph": ...}`` record: (a) the bit-equality set, (b)
-    scene 1 at its bench config cut to 36 spp, depth 8, and the graph
-    counts of the main paths of phases 5-19.  (b)'s scene-9 frames (400x400,
-    16 spp: 73-100 s of the run on an H100 80GB HBM3 at 700 W) were cut to
-    make room for phase 23; phase 6 still renders scene 9 at its code-true
-    config on the graph route, and (a) holds its routes bit-equal at
-    100x100."""
+    scene 1 at its bench config cut to 36 spp, depth 8, (c) three frames
+    of one key, and the graph counts of the main paths of phases 5-19.
+    (b)'s scene-9 frames (400x400, 16 spp: 73-100 s of the run on an H100
+    80GB HBM3 at 700 W) were cut to make room for phase 23; phase 6 still
+    renders scene 9 at its code-true config on the graph route, and (a)
+    holds its routes bit-equal at 100x100."""
     t0 = time.perf_counter()
     rec = {"bit_equal": routes_bit_equal(dev)}
     log(f"phase 21 (a) took {time.perf_counter() - t0:.1f} s")
@@ -2370,6 +2511,9 @@ def span_graph_phase(dev, card):
     t0 = time.perf_counter()
     rec["scene1"] = routes_frame("scene1", world1, cam1, dev, card)
     log(f"phase 21 (b) scene1 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rec["kept_key"] = kept_key_frames(dev, card)
+    log(f"phase 21 (c) took {time.perf_counter() - t0:.1f} s")
     rec["main_paths"] = dict(GRAPHS)
     for name, g in GRAPHS.items():
         log(f"span graphs of the main path {name}: {g}")
@@ -2804,7 +2948,7 @@ def main():
 
     # ---- 5. main path: scene 1 at its bench config ----
     world1, cam1 = sc.random_spheres()
-    counts1, img1, wall1 = main_path("scene1", world1, cam1, dev, card)
+    counts1, img1, wall1, _ = main_path("scene1", world1, cam1, dev, card)
     img1 = img1.cpu().numpy()
     data1, meta1 = world1.compile()
     small = cam1.replace(image_width=200, image_height=112, sqrt_spp=4)
@@ -2908,8 +3052,10 @@ def main():
     # other, so that the order of the runs cancels from the comparison; the
     # second "cull" run is profiled over WH tasks from WH / 2 (the second
     # half of layer 0 and the first of layer 1: every pixel once, and more
-    # than the 2^16-lane pool holds)
-    for k, mode in enumerate((None, "cull", "cull", None)):
+    # than the 2^16-lane pool holds).  The span program is kept by key, so
+    # the second "cull" run replays the first's capture; a fifth run, none
+    # again, does the same for "none"
+    for k, mode in enumerate((None, "cull", "cull", None, None)):
         runs.setdefault(mode, []).append(main_path(
             "scene9 16spp" + (" accel=cull" if mode else ""), world9, cam9c,
             dev, card, accel=mode, profiled=k == 2,
@@ -2917,19 +3063,25 @@ def main():
     counts9c, counts9n = runs["cull"][0][0], runs[None][0][0]
     assert counts9c["cull"] > 0 and counts9c["none"] == counts9c["bvh"] == 0
     assert counts9n["cull"] == 0 and counts9n["none"] > 0
-    assert runs["cull"][1][0] == counts9c and runs[None][1][0] == counts9n
+    assert runs["cull"][1][0] == counts9c
+    assert runs[None][1][0] == runs[None][2][0] == counts9n
+    captures = {m: [g["captures"] for *_, g in runs[m]] for m in runs}
+    assert captures == {None: [1, 1, 0], "cull": [1, 0]}, captures
     # both modes give the plain scan's hits bit for bit and the rest of the
     # render is the same; a pixel deposits at most once a round (a task
     # lives at most 8 samples x 5 segments = 5 rounds, and its pixel's next
     # task comes WH tasks later), so index_add_ adds in one order
-    imgs = [img for mode in (None, "cull") for _, img, _ in runs[mode]]
+    imgs = [img for mode in (None, "cull") for _, img, _, _ in runs[mode]]
     diff = max(float((img - imgs[0]).abs().max()) for img in imgs[1:])
-    walls = {m: [w for _, _, w in runs[m]] for m in runs}
+    walls = {m: [r[2] for r in runs[m]] for m in runs}
     log(f"phase 16 none / cull walls (s), in run order none, cull, cull, "
-        f"none: {walls[None][0]:.3f}, {walls['cull'][0]:.3f}, "
-        f"{walls['cull'][1]:.3f}, {walls[None][1]:.3f}; mean none "
-        f"{statistics.mean(walls[None]):.3f}, cull "
-        f"{statistics.mean(walls['cull']):.3f}; four images bit-equal "
+        f"none, none: {walls[None][0]:.3f}, {walls['cull'][0]:.3f}, "
+        f"{walls['cull'][1]:.3f}, {walls[None][1]:.3f}, "
+        f"{walls[None][2]:.3f} (span captures 1, 1, 0, 1, 0: the third "
+        f"and fifth replay the key kept from the run before); with the "
+        f"capture none {statistics.mean(walls[None][:2]):.3f}, cull "
+        f"{walls['cull'][0]:.3f}; kept key none {walls[None][2]:.3f}, cull "
+        f"{walls['cull'][1]:.3f}; five images bit-equal "
         f"{all(torch.equal(img, imgs[0]) for img in imgs[1:])} (max |diff| "
         f"{diff:.3e}) | {card}")
     assert all(torch.equal(img, imgs[0]) for img in imgs[1:]), \

@@ -14,7 +14,10 @@ The default mode benches one scene (and, for scene 1, the quick train step
 beside it) and prints ONE JSON line last on stdout, ``bench.py``'s
 ``{"metric", "value", "unit": "paths/s/chip", "vs_baseline"}``.  The
 first render is a warm-up span of ``task_range=(0, 4096)``; its seconds,
-the kernel's nvcc build included on a cold cache, fill ``compile_s``.
+the kernel's nvcc build included on a cold cache, fill ``compile_s``.  On
+a card it captures the span's CUDA graph, which the frames (the same
+graph key) replay, so ``compile_s`` holds the capture, as ``bench.py``'s
+warm-up holds the jit compile.
 Then ``--frames`` frames are timed and the median kept; every timed window
 ends with ``torch.cuda.synchronize`` on the render's device.  ``--all``
 benches every reference scene at its code-true geometry and the train

@@ -10,13 +10,14 @@ Renders a reference scene at its code-true config (scene 1, the default:
 are further sample chunks: spread16k's frame is 90,000 tasks), after a
 warm-up span: once plainly for the wall time, then once under
 ``torch.profiler`` (CPU + CUDA).  The spans run as ``render_wavefront``
-runs them on a card: each span's first round eagerly, every later round as
-one replay of a captured CUDA graph (the profiler attributes the kernels of
-a replay like eager ones).  Prints the device time by kernel, the
-closest-hit kernel's share of it by accel mode, the device's busy and idle
-shares of the unprofiled wall time, device kernels per bounce step, host
-syncs, graphs captured and replayed, capture seconds and peak device
-memory, beside the card's name and power limit.  Needs a CUDA card.
+runs them on a card: every round a replay of the span program that the
+warm-up captured and that the same graph key keeps (the profiler
+attributes the kernels of a replay like eager ones).  Prints the device
+time by kernel, the closest-hit kernel's share of it by accel mode, the
+device's busy and idle shares of the unprofiled wall time, device kernels
+per bounce step, host syncs, graphs captured and replayed, capture
+seconds and peak device memory, beside the card's name and power limit.
+Needs a CUDA card.
 """
 
 from __future__ import annotations

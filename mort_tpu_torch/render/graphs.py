@@ -5,10 +5,10 @@ A wavefront round (``wavefront._span_core``), a train step
 bounce (``renderer.radiance_batches``) each run once eagerly on a card,
 which builds or loads the kernel library and does torch's lazy
 initialisation, and are then captured once into a ``torch.cuda.CUDAGraph``
-and replayed.  A replay reads and writes the addresses the capture saw,
-so what is captured works on static tensors that it writes in place, and
-makes no host read and no tensor from host data (``device.constant``
-serves the constants).
+and replayed, each kept by its graph key across calls.  A replay reads
+and writes the addresses the capture saw, so what is captured works on
+static tensors that it writes in place, and makes no host read and no
+tensor from host data (``device.constant`` serves the constants).
 """
 
 from __future__ import annotations

@@ -17,12 +17,14 @@ The counter-based RNG keys draws by (pixel, sample, bounce, slot), so the
 per-sample radiance is the JAX package's; only the accumulation order
 differs.  ``jax.lax.while_loop``/``fori_loop`` become Python loops whose
 condition is read on the host once a round (one device sync).  On a card
-a span is one captured device program, the counterpart of
-``jax.jit(_wavefront_span)``: its first round runs eagerly, the next is
-captured into a CUDA graph, and every later round is one replay
-(``_span_core``).  The deposit has a fixed shape, as JAX's drop-mode
-scatter: a lane that does not deposit adds into a drop row of its own
-past the image (``_deposit``).
+the span's round is one captured device program kept by graph key across
+spans and calls, the counterpart of ``jax.jit(_wavefront_span)`` and its
+cache: the key's first round runs eagerly, the next is captured into a
+CUDA graph, and every later round of every span of the key is one replay
+over static tensors that each span and call fills (``_span_core``).  The
+deposit has a fixed shape, as JAX's drop-mode scatter: a lane that does
+not deposit adds into a drop row of its own past the image
+(``_deposit``).
 
 Every reference scene renders: constant media are sampled after the closest
 hit (``media_pass``), lights through the mixture pdf and fallback
@@ -46,30 +48,67 @@ pixel from one rank) gathers the image on every rank.
 from __future__ import annotations
 
 import functools
+import weakref
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ..camera import Camera, derive_basis, get_rays_soa
+from ..camera import Camera, CameraBasis, derive_basis, get_rays_soa
 from ..rng import DEFAULT_SEED
 from ..parallel.sharding import _all_reduce, check_mesh
 from ..scene.build import SceneData, SceneMeta
 from ..device import require_cuda
 from . import closest_hit as ch
 from . import vec as v3
-from .graphs import capture, graph_route as _graph_route
+from .graphs import (
+    capture, cloned, graph_route as _graph_route, layout, tensors,
+)
 from .hitshade import finalize_and_shade
-from .intersect import T_MIN, media_pass, quad_frames
+from .intersect import T_MIN, QuadFrames, media_pass, quad_frames
 from .primtable import build_prim_table
 from .vec import V3
 
 
 # What the spans did since import (or since a caller reset them): spans
-# run, rounds run, CUDA graphs captured, rounds replayed from a graph, host
-# reads (the loop condition once a round, the useful count once a span, the
-# device sync before a capture) and seconds spent capturing.
-graph_count = {"spans": 0, "rounds": 0, "captures": 0, "replays": 0,
-               "syncs": 0, "capture_s": 0.0}
+# run, rounds run, CUDA graphs captured, captures that replaced another
+# key's program, rounds replayed from a graph, host reads (the loop
+# condition once a round, the useful count once a span, the device sync
+# before a capture) and seconds spent capturing.
+graph_count = {"spans": 0, "rounds": 0, "captures": 0, "recaptures": 0,
+               "replays": 0, "syncs": 0, "capture_s": 0.0}
+
+
+@dataclass(frozen=True)
+class SpanOperands:
+    """What every span of a call reads besides its lanes: the scene, its
+    quad frames, the camera and its basis, the primitive table, the
+    material columns, the closest hit's pack and the "none" mode's
+    axis-aligned quad rows off their axes (``closest_hit.aaq_off_axis``),
+    built once a call outside any capture."""
+    data: SceneData
+    qf: QuadFrames
+    cam: Camera
+    basis: CameraBasis
+    table: torch.Tensor
+    mat_cols: torch.Tensor
+    packed: ch.PackedScene
+    off_axis: tuple
+
+
+def span_operands(data: SceneData, meta: SceneMeta, cam: Camera,
+                  accel: str) -> SpanOperands:
+    """``SpanOperands`` of a scene and camera on their device; on "none"
+    one host read (``closest_hit.aaq_off_axis``)."""
+    qf = quad_frames(data)
+    table, mat_cols = build_prim_table(data, meta, qf)
+    off_axis = ()
+    if accel == "none":
+        with torch.no_grad():
+            off_axis = ch.aaq_off_axis(meta, ch.quad_records(data, qf))
+    return SpanOperands(data, qf, cam, derive_basis(cam), table, mat_cols,
+                        ch.pack_scene(data, meta, qf, table, accel, off_axis),
+                        off_axis)
 
 
 def _deposit(fb: torch.Tensor, pend: torch.Tensor, pixel: torch.Tensor,
@@ -85,32 +124,31 @@ def _deposit(fb: torch.Tensor, pend: torch.Tensor, pixel: torch.Tensor,
     fb.index_add_(0, torch.where(pend, pixel, drop), Lsum.to_rows() * inv_spp)
 
 
-def _make_round(data: SceneData, meta: SceneMeta, cam: Camera, seed: int,
-                fb: torch.Tensor, task_start: int, task_end: int, *,
-                pool: int, window: int, spt: int, use_kernel: bool,
-                accel: str, no_defocus: bool, per: int, n_shards: int,
-                shard_id: int):
-    """One span's round and the static tensors it reads and writes in
+# each lane field's value at a span's start (the rest are 0 or false)
+_LANE_ONES = ("rd", "beta")
+
+
+def _make_round(ops: SpanOperands, meta: SceneMeta, *, pool: int,
+                window: int, spt: int, use_kernel: bool, no_defocus: bool,
+                per: int, n_shards: int, shard_id: int):
+    """A round over ``ops`` and the static tensors it reads and writes in
     place: returns ``(round_, state)``.  ``state`` holds the lanes' fields,
-    ``fb`` (the image's ``per`` rows, then one drop row a lane), ``counter``
-    (the next task), ``useful`` (the useful segments so far) and ``go``
-    (the loop condition after the last round).  A replayed CUDA graph reads
-    and writes the addresses it was captured with, so a round rebinds
-    nothing that outlives it: it ends by copying its results into these
-    tensors.  The span's constants (``total``, ``seed``, ``inv_spp``,
-    ``spt``, ``per``, the camera basis) are Python scalars or tensors made
-    here, once a span, outside any capture."""
-    dev = fb.device
+    ``fb`` (the image's ``per`` rows, then one drop row a lane), ``seed``
+    (an int64 scalar: Philox's key word), ``total`` (the span's end task),
+    ``counter`` (the next task), ``useful`` (the useful segments so far)
+    and ``go`` (the loop condition after the last round); ``_start_span``
+    fills them for a span.  A replayed CUDA graph reads and writes the
+    addresses it was captured with, so a round rebinds nothing that
+    outlives it: it ends by copying its results into these tensors.  The
+    round's Python numbers (``spp``, ``inv_spp``, ``spt``, ``per``, the
+    image size, the bounce limit) come from the graph key."""
+    data, qf, cam, basis = ops.data, ops.qf, ops.cam, ops.basis
+    table, mat_cols, packed = ops.table, ops.mat_cols, ops.packed
+    dev = data.sph_center.device
     W, H = cam.image_width, cam.image_height
     WH = W * H
     spp = cam.sqrt_spp * cam.sqrt_spp
-    total = task_end
     inv_spp = float(np.float32(1.0 / spp))
-    basis = derive_basis(cam)
-    qf = quad_frames(data)
-    table, mat_cols = build_prim_table(data, meta, qf)
-    # every kernel operand built ONCE per span, outside the bounce loop
-    packed = ch.pack_scene(data, meta, qf, table, accel)
     P = pool
     bg = cam.background
     bg_v = V3(bg[0], bg[1], bg[2])
@@ -118,27 +156,27 @@ def _make_round(data: SceneData, meta: SceneMeta, cam: Camera, seed: int,
     def zeros(dtype):
         return torch.zeros(P, dtype=dtype, device=dev)
 
-    def v3_full(x):
-        return V3(*(torch.full((P,), x, dtype=torch.float32, device=dev)
-                    for _ in range(3)))
+    def v3_zeros():
+        return V3(*(zeros(torch.float32) for _ in range(3)))
+
+    def scalar(dtype=torch.int64):
+        return torch.zeros((), dtype=dtype, device=dev)
 
     lanes = {
         "alive": zeros(torch.bool), "pend": zeros(torch.bool),
         "pixel": zeros(torch.int64), "sample": zeros(torch.int64),
-        "send": zeros(torch.int64), "ro": v3_full(0.0), "rd": v3_full(1.0),
+        "send": zeros(torch.int64), "ro": v3_zeros(), "rd": v3_zeros(),
         "tme": zeros(torch.float32), "bounce": zeros(torch.int64),
-        "L": v3_full(0.0), "Lsum": v3_full(0.0), "beta": v3_full(1.0),
+        "L": v3_zeros(), "Lsum": v3_zeros(), "beta": v3_zeros(),
     }
     fbx = torch.zeros((per + P, 3), dtype=torch.float32, device=dev)
-    fbx[:per] = fb
     state = {
         "lanes": lanes, "fb": fbx,
         "drop": torch.arange(per, per + P, device=dev),
-        "counter": torch.full((), task_start, dtype=torch.int64, device=dev),
-        "useful": torch.zeros((), dtype=torch.int64, device=dev),
-        "go": torch.full((), task_start < total, dtype=torch.bool,
-                         device=dev),
+        "seed": scalar(), "total": scalar(), "counter": scalar(),
+        "useful": scalar(), "go": scalar(torch.bool),
     }
+    seed, total = state["seed"], state["total"]
     counter, useful = state["counter"], state["useful"]
 
     def closest(ro, rd, tme):
@@ -246,16 +284,85 @@ def _make_round(data: SceneData, meta: SceneMeta, cam: Camera, seed: int,
     return round_, state
 
 
+def _start_span(state: dict, fb: torch.Tensor, seed: int, task_start: int,
+                task_end: int) -> None:
+    """Fill ``_make_round``'s static tensors for the span [task_start,
+    task_end) accumulating onto ``fb`` [per, 3]: every lane idle (rd and
+    beta 1, every other field 0), ``fb`` into the image rows and zeros
+    into the drop rows, the seed, the bounds and the counts.  Writes in
+    place with Python scalars and device copies only: no host read."""
+    for k, x in state["lanes"].items():
+        for t in x if isinstance(x, V3) else (x,):
+            t.fill_(1 if k in _LANE_ONES else 0)
+    per = fb.shape[0]
+    state["fb"][:per].copy_(fb)
+    state["fb"][per:].zero_()
+    state["seed"].fill_(int(seed) & 0xFFFFFFFF)
+    state["total"].fill_(task_end)
+    state["counter"].fill_(task_start)
+    state["useful"].zero_()
+    state["go"].fill_(task_start < task_end)
+
+
 # the span's capture, counted in ``graph_count`` (a test puts a stand-in
 # here)
 _capture = functools.partial(capture, counts=graph_count)
+# the kept span program of the current graph key: "key", "ops" (static
+# clones of a call's SpanOperands), "round" and "state" (``_make_round``'s
+# over them), "warm" (its eager round has run), "captured" ((graph, replay)
+# once captured) and "src" (a weak reference to the SpanOperands last
+# copied into "ops")
+_graphs = {}
 
 
-def _span_core(data: SceneData, meta: SceneMeta, cam: Camera, seed: int,
+def drop_graph() -> None:
+    """Drop the kept span program (its CUDA graph, its memory pool's hold
+    and its static tensors); the next span on a card captures anew."""
+    captured = _graphs.get("captured")
+    if captured is not None:
+        captured[0].reset()
+    _graphs.clear()
+
+
+def _kept_program(ops: SpanOperands, meta: SceneMeta, key, round_kw: dict):
+    """The kept program's state for ``key``, ``ops`` copied into its static
+    operands once a call: a new key drops the old program and makes a new
+    one over clones of ``ops``."""
+    if _graphs.get("key") != key:
+        if _graphs:
+            graph_count["recaptures"] += 1
+        drop_graph()
+        statics = cloned(ops)
+        round_, state = _make_round(statics, meta, **round_kw)
+        _graphs.update(key=key, ops=statics, round=round_, state=state,
+                       warm=False, captured=None)
+    elif _graphs["src"]() is not ops:
+        for dst, src in zip(tensors(_graphs["ops"]), tensors(ops)):
+            dst.copy_(src)
+    _graphs["src"] = weakref.ref(ops)
+    return _graphs["state"]
+
+
+def _run_kept(dev: torch.device) -> None:
+    """One round of the kept program: its key's first round eagerly (it
+    builds or loads the kernel library and does torch's lazy
+    initialisation), then the capture, then replays."""
+    captured = _graphs["captured"]
+    if captured is None:
+        if not _graphs["warm"]:
+            _graphs["round"]()
+            _graphs["warm"] = True
+            return
+        captured = _graphs["captured"] = _capture(_graphs["round"], dev)
+        graph_count["syncs"] += 1
+    captured[1]()
+
+
+def _span_core(ops: SpanOperands, meta: SceneMeta, seed: int,
                fb: torch.Tensor, task_start: int, task_end: int, *,
                pool: int, window: int, spt: int, use_kernel: bool,
-               accel: str, no_defocus: bool, per: int, n_shards: int,
-               shard_id: int, eager: bool = False):
+               no_defocus: bool, per: int, n_shards: int, shard_id: int,
+               eager: bool = False):
     """Run the wavefront over local chunk-tasks [task_start, task_end),
     accumulating into ``fb`` [per, 3] in place.  Returns
     (iterations, useful_segments) as Python ints.
@@ -266,44 +373,58 @@ def _span_core(data: SceneData, meta: SceneMeta, cam: Camera, seed: int,
     pixels (global id >= W*H) are consumed but never activated.
 
     On a CUDA device the span is the counterpart of the JAX package's
-    ``jax.jit(_wavefront_span)``: round 1 runs eagerly (it builds or loads
-    the kernel library and does torch's lazy initialisation), the next
-    round is captured once into a CUDA graph, and every later round is one
-    replay of it; the loop condition is read on the host once a round.  A
-    failed capture or replay raises.  ``eager`` (private: the card tests and
-    chip_smoke.py compare the two routes with it) runs every round eagerly,
-    as the CPU always does; both routes run the same ops on the same
-    operands."""
-    round_, state = _make_round(
-        data, meta, cam, seed, fb, task_start, task_end, pool=pool,
-        window=window, spt=spt, use_kernel=use_kernel, accel=accel,
-        no_defocus=no_defocus, per=per, n_shards=n_shards,
-        shard_id=shard_id)
-    graph = _graph_route(fb.device, eager)
-    captured = replay = None
-    iters = 0
+    ``jax.jit(_wavefront_span)`` and its cache: one program kept by graph
+    key across spans and calls.  The key: the device, ``meta``, ``pool``,
+    ``window``, ``spt``, ``per``, ``n_shards``, ``shard_id``,
+    ``use_kernel``, ``no_defocus`` and the layout of ``ops`` (shapes, the
+    camera's static fields, the pack's sizes and accel mode: "cull"'s and
+    "bvh"'s tables depend on the data; "none"'s quad rows off their
+    axes).  The key's first round runs eagerly, the next is captured
+    into a CUDA graph and every later round, of this span and of every
+    later span of the key, is one replay.  Before a span its static
+    tensors are filled (``_start_span``) and, once a call, ``ops`` is
+    copied into the key's clones.  The loop condition is read on the host
+    once a round.  A new key drops the old program; a failed capture or
+    replay raises and drops the key.
+    ``eager`` (private: the card tests and chip_smoke.py compare the two
+    routes with it) runs every round eagerly over ``ops``, as the CPU
+    always does; both routes run the same ops on the same values."""
+    round_kw = dict(pool=pool, window=window, spt=spt, use_kernel=use_kernel,
+                    no_defocus=no_defocus, per=per, n_shards=n_shards,
+                    shard_id=shard_id)
+    dev = fb.device
     graph_count["spans"] += 1
-    try:
-        while True:
-            # the loop condition, read on the host: one sync per round
-            graph_count["syncs"] += 1
-            if not bool(state["go"]):
-                break
-            if not graph or iters == 0:
-                round_()
-            else:
-                if replay is None:
-                    captured, replay = _capture(round_, fb.device)
-                    graph_count["syncs"] += 1
-                replay()
-            iters += 1
-            graph_count["rounds"] += 1
-    finally:
-        if captured is not None:
-            captured.reset()
+    if _graph_route(dev, eager):
+        key = (dev, meta, pool, window, spt, per, n_shards, shard_id,
+               use_kernel, no_defocus, layout(ops))
+        try:
+            with torch.no_grad():
+                state = _kept_program(ops, meta, key, round_kw)
+            _start_span(state, fb, seed, task_start, task_end)
+            iters = _loop(state, functools.partial(_run_kept, dev))
+        except Exception:
+            drop_graph()
+            raise
+    else:
+        round_, state = _make_round(ops, meta, **round_kw)
+        _start_span(state, fb, seed, task_start, task_end)
+        iters = _loop(state, round_)
     fb.copy_(state["fb"][:per])
     graph_count["syncs"] += 1
     return iters, int(state["useful"])
+
+
+def _loop(state: dict, run) -> int:
+    """``run()`` rounds while the loop condition holds, read on the host
+    once a round (one sync); returns the rounds run."""
+    iters = 0
+    while True:
+        graph_count["syncs"] += 1
+        if not bool(state["go"]):
+            return iters
+        run()
+        iters += 1
+        graph_count["rounds"] += 1
 
 
 def default_pool(meta: SceneMeta, n_pixels: int) -> int:
@@ -426,14 +547,14 @@ def render_wavefront(data: SceneData, meta: SceneMeta, cam: Camera,
         spans = [(s0, min(s0 + tasks_per_call, end))
                  for s0 in range(start, end, tasks_per_call)]
 
+    ops = span_operands(data, meta, cam, accel)
     iters = useful = 0
     before = sum(mesh.collectives.values()) if mesh is not None else 0
     for s0, s1 in spans:
         it, us = _span_core(
-            data, meta, cam, int(seed), fb, s0, s1, pool=int(pool),
+            ops, meta, int(seed), fb, s0, s1, pool=int(pool),
             window=int(window), spt=int(spt), use_kernel=bool(use_kernel),
-            accel=accel, no_defocus=no_defocus, per=per, n_shards=n,
-            shard_id=sid)
+            no_defocus=no_defocus, per=per, n_shards=n, shard_id=sid)
         iters += it
         useful += us
     stats = {"iterations": iters, "useful_segments": useful,

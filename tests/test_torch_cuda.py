@@ -755,18 +755,20 @@ def _both_routes(monkeypatch, fn):
     return out
 
 
-def _assert_routes_equal(graph, eager, accel, spans):
+def _assert_routes_equal(graph, eager, accel, spans, captures=1):
     """Bit-equal images (raw int32 views), equal stats and launches; the
-    graph route captured once a span and replayed, the eager one never."""
+    graph route captured ``captures`` times over its ``spans`` spans (once
+    a key: 1 for a new key, 0 for a kept one) and replayed every round
+    after the key's first, the eager one never."""
     (g_img, g_stats), g_launch, g_count = graph
     (e_img, e_stats), e_launch, e_count = eager
     assert torch.equal(g_img.view(torch.int32), e_img.view(torch.int32))
     assert g_stats == e_stats
     assert g_launch == e_launch and g_launch[accel] > 0
     assert e_count["captures"] == e_count["replays"] == 0
-    assert g_count["captures"] == spans and g_count["spans"] == spans
+    assert g_count["captures"] == captures and g_count["spans"] == spans
     assert g_count["rounds"] == e_count["rounds"]
-    assert g_count["replays"] == g_count["rounds"] - spans > 0
+    assert g_count["replays"] == g_count["rounds"] - captures > 0
 
 
 @pytest.mark.parametrize("accel", ["none", "bvh", "cull"])
@@ -776,6 +778,7 @@ def test_span_graph_equals_eager_scene9(dev, monkeypatch, accel):
     deposits once a span, so index_add_'s atomic order cannot show), the
     same rounds, useful segments and kernel launches; over the default
     spans the images pass the image rule."""
+    wf.drop_graph()
     world, cam = sc.final_scene(400, 250, 4)
     data, meta = world.compile()
     cam = cam.replace(image_width=100, image_height=100, sqrt_spp=4)
@@ -793,6 +796,7 @@ def test_span_graph_equals_eager_scene9(dev, monkeypatch, accel):
 def test_span_graph_equals_eager_spread16k(dev, monkeypatch):
     """The 16,384-sphere scene at 160x90, 4 spp, depth 4 (auto accel
     "bvh"): graph and eager routes bit-equal over layer-aligned spans."""
+    wf.drop_graph()
     world, cam = sc.spread_spheres()
     data, meta = world.compile()
     cam = cam.replace(image_width=160, image_height=90, sqrt_spp=2,
@@ -806,6 +810,7 @@ def test_span_graph_equals_eager_spread16k(dev, monkeypatch):
 def test_span_graph_equals_eager_progressive(dev, monkeypatch):
     """Progressive scene 6 (48x48, 9 spp, spt 3: three layers, a span
     each) through both routes: the same bits, launches and rounds."""
+    wf.drop_graph()
     from mort_tpu_torch.render.progressive import (
         render_progressive_wavefront,
     )
@@ -818,6 +823,67 @@ def test_span_graph_equals_eager_progressive(dev, monkeypatch):
         torch.from_numpy(render_progressive_wavefront(
             data, meta, cam, spt=3).fb), {}))
     _assert_routes_equal(graph, eager, "none", spans=3)
+
+
+def _scene9_small():
+    world, cam = sc.final_scene(400, 250, 4)
+    data, meta = world.compile()
+    return data, meta, cam.replace(image_width=100, image_height=100,
+                                   sqrt_spp=4)
+
+
+@pytest.mark.parametrize("accel", ["none", "bvh", "cull"])
+def test_span_graph_kept_across_calls(dev, monkeypatch, accel):
+    """Scene 9 at 100x100, 16 spp, depth 4, over layer-aligned spans: two
+    calls of one key with the seed, the camera's ``lookfrom`` and a
+    sphere's centre changed between them each give the eager route's bits,
+    stats and launches; one capture over both calls, and the second runs
+    no eager round (every round a replay)."""
+    wf.drop_graph()
+    data, meta, cam = _scene9_small()
+    centre = data.sph_center.clone()
+    centre[5] += torch.tensor([3.0, -2.0, 1.0])
+    calls = [(data, cam, 9),
+             (dataclasses.replace(data, sph_center=centre),
+              cam.replace(lookfrom=cam.lookfrom + torch.tensor(
+                  [-20.0, 5.0, 10.0])), 10)]
+    for k, (d, c, seed) in enumerate(calls):
+        graph, eager = _both_routes(monkeypatch, lambda: render_wavefront(
+            d, meta, c, dev, seed=seed, accel=accel, layer_range=(0, 2),
+            return_stats=True))
+        _assert_routes_equal(graph, eager, accel, spans=2, captures=1 - k)
+        assert graph[2]["recaptures"] == 0
+
+
+def test_span_graph_mesh_captures_once(dev, monkeypatch):
+    """Scene 1 at 200x112, 16 spp, depth 20 through ``make_mesh(1)`` (its
+    spans layer-aligned, two): one capture for the call, none for a second
+    call at another seed; both bit-equal to the eager route."""
+    from mort_tpu_torch import make_mesh
+
+    wf.drop_graph()
+    world, cam = sc.random_spheres()
+    data, meta = world.compile()
+    cam = cam.replace(image_width=200, image_height=112, sqrt_spp=4)
+    mesh = make_mesh(1)
+    for k, seed in enumerate((9, 10)):
+        graph, eager = _both_routes(monkeypatch, lambda: render_wavefront(
+            data, meta, cam, seed=seed, mesh=mesh, return_stats=True))
+        _assert_routes_equal(graph, eager, "none", spans=2, captures=1 - k)
+
+
+def test_span_graph_new_key_recaptures(dev):
+    """A new pool (a field of the key) drops the kept program and captures
+    again, counting a recapture; the same key again does not."""
+    wf.drop_graph()
+    data, meta, cam = _scene9_small()
+    for k, pool in enumerate((1 << 16, 1 << 15, 1 << 15)):
+        before = dict(wf.graph_count)
+        render_wavefront(data, meta, cam, dev, seed=9, pool=pool)
+        moved = {k: wf.graph_count[k] - n for k, n in before.items()}
+        assert moved["captures"] == (1, 1, 0)[k], moved
+        assert moved["recaptures"] == (0, 1, 0)[k], moved
+        assert moved["replays"] == moved["rounds"] - moved["captures"]
 
 
 def _steps(meta, data, cam, target, eager, seeds, **kw):

@@ -1,10 +1,13 @@
-"""The wavefront span as one captured round: what the CPU can hold.
+"""The wavefront span as one captured round kept by key: what the CPU can
+hold.
 
-On a card ``_span_core`` runs round 1 eagerly, captures the next round into
-a CUDA graph and replays it for every later round (the counterpart of the
-JAX package's ``jax.jit(_wavefront_span)``).  The capture itself needs the
-card (``test_torch_cuda.py`` holds the graph route against the eager route
-there); on the CPU these tests hold what the capture rests on:
+On a card ``_span_core`` keeps one program a graph key across spans and
+calls: the key's first round runs eagerly, the next is captured into a
+CUDA graph and every later round of every span of the key replays it (the
+counterpart of the JAX package's ``jax.jit(_wavefront_span)`` and its
+cache).  The capture itself needs the card (``test_torch_cuda.py`` holds
+the graph route against the eager route there); on the CPU these tests
+hold what the capture rests on:
 
 - the round schedule (rounds and useful segments) against the JAX
   package's at the same pool, window and spt;
@@ -12,11 +15,19 @@ there); on the CPU these tests hold what the capture rests on:
   non-depositing ones into drop rows past the image) bit-equal to the
   deposit of the depositing lanes alone (``nonzero``);
 - layer-aligned resume bit-equal;
-- no host read and no tensor made from host data inside a round, which a
-  capture would refuse;
-- the graph route's loop (one capture a span, a replay for every later
-  round) with a stand-in for the capture.
+- no host read and no tensor made from host data inside a round of a
+  kept key (the seed and the span's end device scalars), which a capture
+  would refuse, nor in the span's start;
+- with a stand-in for the capture whose replay runs the key's round: one
+  capture a key, a replay for every later round of every span and call;
+  a second call of the key with the seed, the task range, ``fb``, the
+  camera and the scene changed gives the eager route's bits; a new pool,
+  spt or accel captures anew; progressive resume bit-equal; the JAX
+  package's image.
 """
+
+import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -29,6 +40,7 @@ from conftest import assert_images_close
 from mort_tpu.render import wavefront as jwf
 from mort_tpu.scene import scenes as jsc
 from mort_tpu_torch.render import wavefront as twf
+from mort_tpu_torch.render.graphs import cloned
 from mort_tpu_torch.render.vec import V3
 from mort_tpu_torch.scene import scenes as tsc
 
@@ -194,6 +206,8 @@ def test_host_read_detector_catches(snippet):
 
 
 def _span_round(idx, task_end):
+    """The round of a kept key (``_make_round`` over static clones of the
+    call's operands) and its state, filled for the span [0, task_end)."""
     world, cam = tsc.build_scene(idx)
     data, meta = world.compile()
     cam = _small(cam)
@@ -201,20 +215,27 @@ def _span_round(idx, task_end):
         cam = cam.replace(defocus_angle=torch.tensor(0.6))
     WH = cam.image_width * cam.image_height
     fb = torch.zeros((WH, 3))
-    return twf._make_round(
-        data, meta, cam, SEED, fb, 0, task_end, pool=256, window=2, spt=4,
-        use_kernel=False, accel="none",
+    ops = cloned(twf.span_operands(data, meta, cam, "none"))
+    round_, state = twf._make_round(
+        ops, meta, pool=256, window=2, spt=4, use_kernel=False,
         no_defocus=bool(cam.defocus_angle <= 0), per=WH, n_shards=1,
         shard_id=0)
+    _no_host_reads(lambda: twf._start_span(state, fb, SEED, 0, task_end))
+    return round_, state
 
 
 @pytest.mark.parametrize("idx", [1, 6, 9])
 def test_round_makes_no_host_read(idx):
-    """After the first (eager) round, a round reads nothing on the host,
-    makes no tensor from host data and picks no shape from the data: all a
-    capture needs.  Scene 1 with a defocus (its lens draws), scene 6
-    (quads, a light), scene 9 (media, image and noise textures)."""
+    """After the first (eager) round, a round of a kept key reads nothing
+    on the host, makes no tensor from host data and picks no shape from
+    the data: all a capture needs.  The seed and the span's end are int64
+    device scalars, filled (with the rest of the span's start) without a
+    host read.  Scene 1 with a defocus (its lens draws), scene 6 (quads, a
+    light), scene 9 (media, image and noise textures)."""
     round_, state = _span_round(idx, task_end=2000)
+    for name in ("seed", "total"):
+        assert state[name].dtype == torch.int64 and state[name].dim() == 0
+    assert int(state["seed"]) == SEED and int(state["total"]) == 2000
     round_()
     for _ in range(2):
         _no_host_reads(round_)
@@ -241,40 +262,238 @@ def test_cpu_route_never_captures():
     assert moved["syncs"] == stats["iterations"] + 2 * moved["spans"]
 
 
-def test_graph_route_loop_with_a_stand_in_capture(monkeypatch):
+class _Graph:
+    def reset(self):
+        pass
+
+
+class _StandIn:
+    """What ``render.graphs.capture`` returns, without a card: the capture
+    records nothing and keeps the key's round (``rounds``, in capture
+    order), and each replay runs it, so a value the round baked in at its
+    key's first span reaches every later span as a real graph carries
+    it."""
+
+    def __init__(self):
+        self.rounds = []
+
+    def __call__(self, round_, dev):
+        twf.graph_count["captures"] += 1
+        self.rounds.append(round_)
+
+        def replay():
+            round_()
+            twf.graph_count["replays"] += 1
+        return _Graph(), replay
+
+
+@pytest.fixture
+def stand_in(monkeypatch):
+    """The graph route on the CPU: ``_graph_route`` true unless eager, the
+    capture the stand-in, no program kept from an earlier test."""
+    capture = _StandIn()
+    monkeypatch.setattr(twf, "_graph_route", lambda dev, eager: not eager)
+    monkeypatch.setattr(twf, "_capture", capture)
+    monkeypatch.setattr(twf, "_graphs", {})
+    return capture
+
+
+def _counted(fn):
+    """``fn()`` and the spans' graph counts it added."""
+    before = dict(twf.graph_count)
+    res = fn()
+    return res, {k: twf.graph_count[k] - before[k] for k in before}
+
+
+def _eager(monkeypatch, fn):
+    """``fn()`` with every span on the eager route (``_span_core``'s
+    private ``eager``)."""
+    with monkeypatch.context() as m:
+        m.setattr(twf, "_span_core",
+                  functools.partial(twf._span_core, eager=True))
+        return fn()
+
+
+def _same(a, b):
+    """Bit-equal float32 tensors (raw int32 views, NaNs included)."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_graph_route_loop_with_a_stand_in_capture(stand_in, monkeypatch):
     """The graph route's loop on the CPU, with a stand-in for the capture
-    whose replay runs the round: round 1 eager, one capture a span, every
-    later round a replay, and the image, rounds and useful segments of the
-    eager route bit for bit, over spans cut short by
-    ``max_paths_per_call``."""
+    whose replay runs the round: the key's first round eager, one capture
+    a key (not a span), every later round of every span a replay, and the
+    image, rounds and useful segments of the eager route bit for bit, over
+    spans cut short by ``max_paths_per_call``."""
     world, cam = tsc.build_scene(7)
     data, meta = world.compile()
     cam = cam.replace(image_width=20, image_height=20, sqrt_spp=3,
                       bounce_limit=5)
     kw = dict(seed=SEED, pool=1024, window=2, spt=4,
               max_paths_per_call=2400, return_stats=True)
-    want, want_stats = twf.render_wavefront(data, meta, cam, "cpu", **kw)
 
-    class StandIn:
-        captured = 0
-
-        def reset(self):
-            pass
-
-    def stand_in_capture(round_, dev):
-        StandIn.captured += 1
-
-        def replay():
-            round_()
-            twf.graph_count["replays"] += 1
-        return StandIn(), replay
-
-    monkeypatch.setattr(twf, "_graph_route", lambda dev, eager: not eager)
-    monkeypatch.setattr(twf, "_capture", stand_in_capture)
-    before = dict(twf.graph_count)
-    got, stats = twf.render_wavefront(data, meta, cam, "cpu", **kw)
-    moved = {k: twf.graph_count[k] - before[k] for k in before}
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    def render():
+        return twf.render_wavefront(data, meta, cam, "cpu", **kw)
+    want, want_stats = _eager(monkeypatch, render)
+    (got, stats), moved = _counted(render)
+    assert _same(got, want)
     assert stats == want_stats
-    assert moved["spans"] == StandIn.captured > 1
-    assert moved["replays"] == moved["rounds"] - moved["spans"] > 0
+    assert moved["spans"] > 1
+    assert moved["captures"] == len(stand_in.rounds) == 1
+    assert moved["replays"] == moved["rounds"] - 1 > 0
+    assert moved["recaptures"] == 0
+
+
+def _scene1(width=24, sqrt_spp=2):
+    """Scene 1 (spheres, a defocus, moving spheres) small, depth 5."""
+    world, cam = tsc.build_scene(1)
+    data, meta = world.compile()
+    h = max(1, int(width * cam.image_height / cam.image_width))
+    cam = cam.replace(image_width=width, image_height=h, sqrt_spp=sqrt_spp,
+                      bounce_limit=5)
+    return data, meta, cam
+
+
+def test_kept_key_takes_each_calls_values(stand_in, monkeypatch):
+    """Two calls of one key with the seed, the task range, ``fb``, the
+    camera's ``lookfrom`` (its static fields the same) and one sphere's
+    centre changed between them: each call gives the eager route's bits
+    and stats, from one capture over both calls; the second call runs no
+    eager round (every round a replay) and keeps the key."""
+    data, meta, cam = _scene1()
+    WH = cam.image_width * cam.image_height
+    g = np.random.RandomState(3)
+    centre = data.sph_center.clone()
+    centre[3] += torch.tensor([0.05, -0.1, 0.2])
+    calls = [
+        dict(data=data, cam=cam, seed=SEED, task_range=None, fb=None),
+        dict(data=dataclasses.replace(data, sph_center=centre),
+             cam=cam.replace(lookfrom=cam.lookfrom + torch.tensor(
+                 [0.3, -0.2, 0.1])),
+             seed=SEED + 1, task_range=(37, 37 + 3 * WH // 2),
+             fb=g.uniform(0, 1, (WH, 3)).astype(np.float32))]
+    captured = 0
+    for k, c in enumerate(calls):
+        def render(c=c):
+            return twf.render_wavefront(
+                c["data"], meta, c["cam"], "cpu", seed=c["seed"],
+                task_range=c["task_range"], fb=c["fb"], pool=256, window=2,
+                spt=2, max_paths_per_call=600, scrub_nan=False,
+                return_stats=True)
+        want, want_stats = _eager(monkeypatch, render)
+        (got, stats), moved = _counted(render)
+        assert _same(got, want), f"call {k}"
+        assert stats == want_stats, f"call {k}"
+        assert moved["spans"] > 1 and moved["recaptures"] == 0
+        captured += moved["captures"]
+        if k:
+            assert moved["captures"] == 0
+            assert moved["replays"] == moved["rounds"] > 0
+    assert captured == len(stand_in.rounds) == 1
+
+
+@pytest.mark.parametrize("sharded", [False, True])
+def test_layer_aligned_call_captures_once(stand_in, monkeypatch, sharded):
+    """A layer-aligned call of four spans (or the same through a one-CPU
+    mesh, whose spans are always layer-aligned) captures once and replays
+    every round after its first; a second call of the key, at another
+    seed, captures nothing.  Both give the eager route's bits."""
+    from mort_tpu_torch.parallel.sharding import make_mesh
+
+    data, meta, cam = _scene1(sqrt_spp=2)
+    kw = (dict(mesh=make_mesh(1, devices=["cpu"])) if sharded
+          else dict(layer_range=(0, 4)))
+    for k, seed in enumerate((SEED, SEED + 7)):
+        def render(seed=seed):
+            return twf.render_wavefront(data, meta, cam, "cpu", seed=seed,
+                                        pool=1024, window=2, spt=1,
+                                        return_stats=True, **kw)
+        want, want_stats = _eager(monkeypatch, render)
+        (got, stats), moved = _counted(render)
+        assert _same(got, want) and stats == want_stats
+        assert moved["spans"] == 4 and moved["recaptures"] == 0
+        assert moved["captures"] == (1, 0)[k]
+        assert moved["replays"] == moved["rounds"] - (1, 0)[k] > 0
+
+
+@pytest.mark.parametrize("field", ["pool", "spt", "accel"])
+def test_new_key_recaptures(stand_in, monkeypatch, field):
+    """A call that changes a field of the key (the pool, the chunk size,
+    the accel mode) drops the kept program, captures anew and counts a
+    recapture, with the eager route's bits; the same key again does
+    not."""
+    data, meta, cam = _scene1()
+    base = dict(pool=1024, spt=2, accel="none")
+    other = dict(base, **{field: {"pool": 2048, "spt": 4,
+                                  "accel": "bvh"}[field]})
+    for k, kw in enumerate((base, other, other)):
+        def render(kw=kw):
+            return twf.render_wavefront(data, meta, cam, "cpu", seed=SEED,
+                                        window=2, return_stats=True, **kw)
+        want, want_stats = _eager(monkeypatch, render)
+        (got, stats), moved = _counted(render)
+        assert _same(got, want) and stats == want_stats
+        assert moved["captures"] == (1, 1, 0)[k]
+        assert moved["recaptures"] == (0, 1, 0)[k]
+    assert len(stand_in.rounds) == 2
+
+
+def test_stand_in_progressive_resume_bit_equal(stand_in, monkeypatch,
+                                               tmp_path):
+    """``render_progressive_wavefront`` on the stand-in graph route: one
+    capture over every layer of every step and call; interrupted after a
+    step, checkpointed and resumed, the framebuffer is the uninterrupted
+    render's, which is the eager route's, bit for bit."""
+    from mort_tpu_torch.render.progressive import (
+        load_state, render_progressive_wavefront,
+    )
+
+    world, cam = tsc.build_scene(6)
+    data, meta = world.compile()
+    cam = cam.replace(image_width=24, image_height=24, sqrt_spp=3,
+                      bounce_limit=6)
+    kw = dict(seed=SEED, spt=3, pool=1024, window=2, device="cpu")
+
+    def full():
+        return render_progressive_wavefront(data, meta, cam, **kw).fb
+
+    class Interrupted(BaseException):
+        pass
+
+    def stop(state):
+        raise Interrupted
+
+    want = _eager(monkeypatch, full)
+    got, moved = _counted(full)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    assert moved["captures"] == 1 and moved["spans"] == 3
+    ckpt = str(tmp_path / "prog.npz")
+    with pytest.raises(Interrupted):
+        render_progressive_wavefront(data, meta, cam, checkpoint_path=ckpt,
+                                     on_step=stop, **kw)
+    resumed, moved = _counted(lambda: render_progressive_wavefront(
+        data, meta, cam, state=load_state(ckpt), **kw).fb)
+    assert np.array_equal(resumed.view(np.int32), want.view(np.int32))
+    assert moved["captures"] == 0 and moved["replays"] == moved["rounds"]
+    assert len(stand_in.rounds) == 1
+
+
+def test_stand_in_graph_route_matches_jax(stand_in):
+    """A render of several spans on the stand-in graph route (one capture,
+    replays for every later round) against the JAX package's
+    ``render_wavefront`` at the same pool, window and spt, by the image
+    rule."""
+    world, cam = tsc.build_scene(1)
+    data, meta = world.compile()
+    jworld, jcam = jsc.build_scene(1)
+    jdata, jmeta = jworld.compile()
+    kw = dict(seed=SEED, pool=POOL, window=WINDOW, spt=SPT)
+    want = jwf.render_wavefront(jdata, jmeta, _small(jcam), use_pallas=False,
+                                **kw)
+    (got, stats), moved = _counted(lambda: twf.render_wavefront(
+        data, meta, _small(cam), "cpu", max_paths_per_call=3000,
+        return_stats=True, **kw))
+    assert moved["spans"] > 1 and moved["captures"] == 1
+    assert moved["replays"] == moved["rounds"] - 1 > 0
+    assert_images_close(got.numpy(), np.asarray(want),
+                        msg="stand-in graph route vs jax")
