@@ -98,13 +98,18 @@ Phases, one line each or more (any failure raises and exits non-zero):
    10's rule, with its all-reduce count; (b) the script starts itself twice
    (``--rank r --world 2``) as gloo ranks sharing the one card: the
    wavefront (scene 1 at 300x169, 16 spp, depth 20; spread16k at 160x90
-   through "bvh") bit-equal to one rank, ``render_sharded`` (replays of
-   the lockstep graphs on every rank) by the image rule, the train step's grads within rtol 5e-3, a scene-6 progressive
-   render checkpointed on two ranks resumed on one bit-identical to an
-   uninterrupted one, every rank's launches above 0, and the 1-rank mesh
-   bit-equal to the render without a mesh over the same layer-aligned
-   spans at that scene-1 config (at full size it would cost phase 5's
-   wall again); a worker that fails or outlives its timeout fails the run;
+   through "bvh") bit-equal to one rank, with each span's rounds
+   recorded on every rank (``_span_core`` wrapped) and every rank's
+   ``iterations`` the sum over spans of the largest rank's rounds and its
+   ``slots_executed`` every rank's rounds (the JAX package's rule),
+   ``render_sharded`` (replays of the lockstep graphs on every rank) by
+   the image rule, the train step's grads within rtol 5e-3, a scene-6
+   progressive render checkpointed on two ranks resumed on one
+   bit-identical to an uninterrupted one, every rank's launches above 0,
+   and the 1-rank mesh bit-equal to the render without a mesh over the
+   same layer-aligned spans at that scene-1 config (at full size it would
+   cost phase 5's wall again); a worker that fails or outlives its
+   timeout fails the run;
    (c) the host BVH builder: g++ builds it and it equals the numpy builder
    bit for bit;
 18. the parity gate (``mort_tpu_torch.parity``): the 13 configs of
@@ -1724,13 +1729,30 @@ def sharded_runs(mesh, ckpt, resume):
 
     cfg = shard_configs()
     out = {}
+    span_core = wf._span_core
     for name, mode in (("scene1", "none"), ("spread16k", "bvh")):
         data, meta, cam = cfg[name]
+        rounds, slot = [], {}
+
+        def recorded_span(*a, **kw):
+            # this rank's rounds a span, and the slots a round
+            res = span_core(*a, **kw)
+            rounds.append(res[0])
+            slot["size"] = kw["window"] * kw["pool"]
+            return res
+        wf._span_core = recorded_span
         reset_counts()
         t0 = time.perf_counter()
-        img, stats = render_wavefront(data, meta, cam, seed=SEED, mesh=mesh,
-                                      return_stats=True)
+        try:
+            img, stats = render_wavefront(data, meta, cam, seed=SEED,
+                                          mesh=mesh, return_stats=True)
+        finally:
+            wf._span_core = span_core
         out[f"wf_{name}_s"] = time.perf_counter() - t0
+        out[f"wf_{name}_rounds"] = np.asarray(rounds)
+        out[f"wf_{name}_slot_size"] = slot["size"]
+        for k in ("iterations", "slots_executed"):
+            out[f"wf_{name}_{k}"] = stats[k]
         out[f"wf_{name}"] = img.cpu().numpy()
         out[f"wf_{name}_launches"] = read_counts()[mode]
         out[f"wf_{name}_captures"] = read_graphs()["captures"]
@@ -2035,6 +2057,26 @@ def sharded_paths(dev, card, scene1_img, scene1_wall, step_wall):
         for r, res in enumerate(two + [one]):
             assert res["sharded_replays"] > 0, \
                 f"render_sharded replayed no lockstep graph ({r})"
+        # the mesh stats' rule (the JAX package's): iterations is the sum
+        # over spans of the largest rank's rounds, slots count every rank's
+        span_rounds = {}
+        for name in ("scene1", "spread16k"):
+            span_rounds[name] = {}
+            for label, ranks in (("two_rank", two), ("one_rank", [one])):
+                rounds = np.stack([res[f"wf_{name}_rounds"]
+                                   for res in ranks])      # [rank, span]
+                iters = int(rounds.max(0).sum())
+                slots = int(rounds.sum()) * int(ranks[0][
+                    f"wf_{name}_slot_size"])
+                for r, res in enumerate(ranks):
+                    got = (int(res[f"wf_{name}_iterations"]),
+                           int(res[f"wf_{name}_slots_executed"]))
+                    assert got == (iters, slots), \
+                        f"phase 17: {name} rank {r}/{len(ranks)}: " \
+                        f"(iterations, slots) {got}, per-span rounds " \
+                        f"{rounds.tolist()} give {(iters, slots)}"
+                span_rounds[name].update({f"{label}_rounds": rounds.tolist(),
+                                          f"{label}_iterations": iters})
         wf_equal = {name: all(np.array_equal(res[f"wf_{name}"],
                                              one[f"wf_{name}"])
                               for res in two)
@@ -2056,7 +2098,14 @@ def sharded_paths(dev, card, scene1_img, scene1_wall, step_wall):
             f" scene1 {SHARD_W}x{SHARD_H} @ {SHARD_SQRT_SPP ** 2}spp depth 20 "
             f"{wf_equal['scene1']}, spread16k 160x90 @ 4spp depth 4 (bvh) "
             f"{wf_equal['spread16k']}; per-rank useful segments scene1 "
-            f"{useful.tolist()}; render_sharded frac_within={frac:.5f}, "
+            f"{useful.tolist()}; per-span rounds [rank][span] and "
+            f"iterations (the sum of each span's largest) "
+            + ", ".join(f"{name} {v['two_rank_rounds']} -> "
+                        f"{v['two_rank_iterations']} (1 rank "
+                        f"{v['one_rank_rounds'][0]} -> "
+                        f"{v['one_rank_iterations']})"
+                        for name, v in span_rounds.items())
+            + f"; render_sharded frac_within={frac:.5f}, "
             f"mean_abs={mdiff:.3e} (bit-equal {sharded_equal}); train step "
             f"{SHARD_W}x{SHARD_H} loss {float(two[0]['loss']):.7f} vs "
             f"{float(one['loss']):.7f}, grads max |diff| {worst:.3e}; "
@@ -2094,7 +2143,8 @@ def sharded_paths(dev, card, scene1_img, scene1_wall, step_wall):
                    two_rank_step_all_reduce=int(two[0]["step_all_reduce"]),
                    two_rank_wavefront_collectives=int(
                        two[0]["wf_scene1_collectives"]),
-                   two_rank_per_shard_useful=useful.tolist())
+                   two_rank_per_shard_useful=useful.tolist(),
+                   span_rounds=span_rounds)
     finally:
         dist.destroy_process_group()
 

@@ -482,7 +482,10 @@ def render_wavefront(data: SceneData, meta: SceneMeta, cam: Camera,
     ``useful_segments`` and ``slots_executed``; with a mesh also
     ``per_shard_useful`` (the useful segments of each rank) and
     ``collectives`` (the collectives the call ran, by purpose: none in
-    its spans, the image's gather and the stats' own).
+    its spans, the image's gather and the stats' own).  With a mesh,
+    ``iterations`` is the sum over spans of the largest rank's rounds
+    (the JAX package's rule: a span lasts as long as its slowest rank)
+    and ``slots_executed`` counts every rank's rounds.
     """
     if mesh is not None:
         device = check_mesh(mesh, device)
@@ -548,15 +551,17 @@ def render_wavefront(data: SceneData, meta: SceneMeta, cam: Camera,
                  for s0 in range(start, end, tasks_per_call)]
 
     ops = span_operands(data, meta, cam, accel)
-    iters = useful = 0
+    rounds = []         # this rank's rounds, one entry a span
+    useful = 0
     before = sum(mesh.collectives.values()) if mesh is not None else 0
     for s0, s1 in spans:
         it, us = _span_core(
             ops, meta, int(seed), fb, s0, s1, pool=int(pool),
             window=int(window), spt=int(spt), use_kernel=bool(use_kernel),
             no_defocus=no_defocus, per=per, n_shards=n, shard_id=sid)
-        iters += it
+        rounds.append(it)
         useful += us
+    iters = sum(rounds)
     stats = {"iterations": iters, "useful_segments": useful,
              "slots_executed": iters * int(window) * int(pool)}
     if mesh is not None:
@@ -566,13 +571,17 @@ def render_wavefront(data: SceneData, meta: SceneMeta, cam: Camera,
         sent = {"spans": sum(mesh.collectives.values()) - before,
                 "gather": _all_reduce(mesh, fb, "gather")}
         if return_stats:
-            # per-rank iterations and useful segments, summed into place
-            per_rank = torch.zeros((2, n), dtype=torch.int64, device=device)
-            per_rank[:, sid] = torch.tensor([iters, useful])
+            # each span's rounds and the useful segments, one column a
+            # rank, summed into place; every rank has the same spans
+            per_rank = torch.zeros((len(spans) + 1, n), dtype=torch.int64,
+                                   device=device)
+            per_rank[:, sid] = torch.tensor(rounds + [useful])
             sent["stats"] = _all_reduce(mesh, per_rank, "stats")
-            it_r, us_r = per_rank.tolist()
-            stats = {"iterations": max(it_r), "useful_segments": sum(us_r),
-                     "slots_executed": sum(it_r) * int(window) * int(pool),
+            *it_r, us_r = per_rank.tolist()
+            stats = {"iterations": sum(max(r) for r in it_r),
+                     "useful_segments": sum(us_r),
+                     "slots_executed": (sum(map(sum, it_r)) * int(window)
+                                        * int(pool)),
                      "per_shard_useful": us_r, "collectives": sent}
     if scrub_nan:
         fb = torch.where(torch.isnan(fb), 0.0, fb)

@@ -48,6 +48,10 @@ from mort_tpu_torch.scene import scenes as tsc  # noqa: E402
 SEED = 11
 W3, H3 = 15, 9              # three-sphere size: 135 pixels, no mesh divides
 SPT = 2
+# the stats' size: 4 spp at spt 1 over pool 1024 is four layer-aligned
+# spans, and on 2 ranks different ranks take the most rounds in different
+# spans, which 15x9 never shows
+W_STATS, H_STATS, POOL_STATS = 80, 45, 1024
 WORLDS = {1: None, 2: None, 4: (2, 2)}      # world size -> mesh shape
 WORKER_TIMEOUT_S = 300
 # every torch.distributed function that talks to another rank
@@ -129,14 +133,17 @@ def _worker_body(args) -> None:
     out["setup_calls"] = sum(calls.values())
     n_axes = len(mesh.groups)
 
-    # the wavefront; the collectives run while a span runs are counted
+    # the wavefront; the collectives run while a span runs are counted,
+    # and each span's rounds are recorded
     in_spans = Counter()
+    rounds = []
     span_core = wavefront._span_core
 
     def counted_span(*a, **kw):
         before = sum(calls.values())
         res = span_core(*a, **kw)
         in_spans["calls"] += sum(calls.values()) - before
+        rounds.append(res[0])
         return res
     wavefront._span_core = counted_span
     data, meta, cam = three_sphere_world()
@@ -151,6 +158,16 @@ def _worker_body(args) -> None:
     out["per_shard_useful"] = np.asarray(stats["per_shard_useful"])
     out["wf_plain"] = render_wavefront(data, meta, cam, seed=SEED, spt=SPT,
                                        mesh=mesh).numpy()
+
+    # the stats at W_STATS x H_STATS, with this rank's rounds a span
+    rounds.clear()
+    _, stats = render_wavefront(
+        data, meta, cam.replace(image_width=W_STATS, image_height=H_STATS),
+        seed=SEED, spt=1, pool=POOL_STATS, mesh=mesh, return_stats=True)
+    out["stats_rounds"] = np.asarray(rounds)
+    for k in ("iterations", "useful_segments", "slots_executed",
+              "per_shard_useful"):
+        out[f"stats_{k}"] = np.asarray(stats[k])
 
     before = sum(calls.values())
     out["sharded"] = render_sharded(data, meta, cam, mesh, seed=SEED)
@@ -331,6 +348,36 @@ def test_wavefront_sharded_balance(worlds):
     useful = worlds[4][0]["per_shard_useful"]
     assert useful.shape == (4,) and useful.min() > 0
     assert useful.max() <= 1.2 * useful.min(), useful
+
+
+@pytest.mark.parametrize("n", sorted(WORLDS))
+def test_wavefront_stats_match_jax(worlds, three_sphere_scene, n):
+    """``return_stats`` over a mesh equals the JAX package's at the same
+    mesh shape, every stat exactly: ``iterations`` is the sum over spans
+    of the largest rank's rounds, at W_STATS x H_STATS, where on 2 ranks
+    different ranks take the most rounds in different spans."""
+    from mort_tpu.parallel.sharding import make_mesh as j_make_mesh
+    from mort_tpu.render.wavefront import render_wavefront as j_render_wf
+
+    ranks = worlds[n]
+    rounds = np.stack([r["stats_rounds"] for r in ranks])   # [rank, span]
+    assert rounds.shape == (n, 4) and rounds.min() > 0, rounds
+    if n == 2:
+        leaders = {int(i) for i in rounds.argmax(0)}
+        assert leaders == {0, 1}, rounds
+        assert rounds.max(0).sum() > rounds.sum(1).max(), rounds
+    got = {k: ranks[0][f"stats_{k}"].tolist()
+           for k in ("iterations", "useful_segments", "slots_executed",
+                     "per_shard_useful")}
+    for r in ranks[1:]:
+        assert {k: r[f"stats_{k}"].tolist() for k in got} == got
+    assert got["iterations"] == rounds.max(0).sum(), (got, rounds)
+    jdata, jmeta, jcam = three_sphere_scene
+    jmesh = j_make_mesh(shape=WORLDS[n]) if WORLDS[n] else j_make_mesh(n)
+    _, want = j_render_wf(
+        jdata, jmeta, jcam.replace(image_width=W_STATS, image_height=H_STATS),
+        seed=SEED, spt=1, pool=POOL_STATS, mesh=jmesh, return_stats=True)
+    assert got == {k: want[k] for k in got}, (got, want)
 
 
 def test_render_sharded_matches(worlds, jax_scene):
