@@ -178,10 +178,27 @@ Phases, one line each or more (any failure raises and exits non-zero):
    in the order graph, eager, graph: wall, paths/s, bounces, host reads,
    captures, capture seconds, launches (equal), peak allocated and
    reserved memory, the images bit-equal; then one frame of each route
-   under ``torch.profiler``: idle share and kernels a bounce step.
+   under ``torch.profiler``: idle share and kernels a bounce step;
+24. the program's spans (``metrics``) and its graphs' timing events: (a)
+   scene 1 at 1200x675, 4 spp, depth 20 (one layer) on the graph route,
+   every replayed round's device time (the timing events captured into
+   the round graph) above 0 and at most its period on the host's clock,
+   one "wavefront.read" a loop read and one "wavefront.launch" a replay,
+   and the image bit-equal to the eager route's; (b) the train step at
+   phase 10's config, four replays: each read replay's device time above
+   0 and at most its step's period, and loss and gradients bit-equal to
+   the eager route where two eager steps are, else within phase 22's
+   tolerance; (c) one viewer call (a camera event and 8 one-sample frames
+   of scene 1 at 1200x675, depth 20) under ``metrics.trace``: no device
+   event of the program's ranges, every span in ``trace.json``, and the
+   device's idle gaps by the innermost span open on the host, those over
+   1 ms listed with their spans, none of them outside the viewer's; (d)
+   the recorder's cost on this host, ns a span recorded and forwarded to
+   a profiler.
 
 Every phase prints its seconds.  Files go to build/chip_smoke/
-(git-ignored).  The last lines are a JSON record of phase 23
+(git-ignored).  The last lines are a JSON record of phase 24
+(``{"spans": ...}``), a JSON record of phase 23
 (``{"lockstep_graph": ...}``), a JSON record of phase 22
 (``{"step_graph": ...}``), a JSON record of phase 21
 (``{"span_graph": ...}``), a JSON record of phases 18-20
@@ -216,6 +233,7 @@ import zlib
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -223,12 +241,12 @@ from mort_tpu_torch import (  # noqa: E402
     make_mesh, make_train_step, render, render_sharded, render_wavefront,
     require_cuda,
 )
-from mort_tpu_torch import _build, rng  # noqa: E402
+from mort_tpu_torch import _build, metrics, rng  # noqa: E402
 from mort_tpu_torch.device import card_line  # noqa: E402
 from mort_tpu_torch.parallel import sharding  # noqa: E402
 from mort_tpu_torch.parallel.launch import run_ranks  # noqa: E402
 from mort_tpu_torch.profile_wavefront import (  # noqa: E402
-    _device_us, device_times,
+    OUTSIDE, SPAN_NAME, _device_us, device_times, idle_by_span,
 )
 from mort_tpu_torch.camera import derive_basis, get_rays_soa  # noqa: E402
 from mort_tpu_torch.render import closest_hit as ch  # noqa: E402
@@ -2935,6 +2953,198 @@ def precision_record(kern, rows_hits):
     return rec
 
 
+@contextlib.contextmanager
+def counted_values():
+    """Every ``metrics.count`` call meanwhile, in order, as (name, n), the
+    counters counting as ever."""
+    seen = []
+    real = metrics.count
+
+    def count(name, n=1):
+        seen.append((name, n))
+        real(name, n)
+    metrics.count = count
+    try:
+        yield seen
+    finally:
+        metrics.count = real
+
+
+def timed_pairs(seen, device, period):
+    """(device ns, period ns) of each unit from ``counted_values``' calls,
+    which count a unit's device time and then its period."""
+    dev_ns = [n for k, n in seen if k == device]
+    per_ns = [n for k, n in seen if k == period]
+    assert len(dev_ns) == len(per_ns), (len(dev_ns), len(per_ns))
+    return list(zip(dev_ns, per_ns))
+
+
+def spans_phase(dev, card):
+    """Phase 24 (the module docstring); returns the ``{"spans": ...}``
+    record."""
+    from mort_tpu_torch.interactive import view
+
+    rec = {"card": card}
+    # (a) the round graph's timing events, one layer of scene 1
+    world1, cam1 = sc.random_spheres()
+    data1, meta1 = world1.compile()
+    cam = cam1.replace(sqrt_spp=2)
+
+    def frame():
+        return render_wavefront(data1, meta1, cam, dev, seed=SEED,
+                                layer_range=(0, 1), return_stats=True)
+
+    wf.drop_graph()
+    on_route(frame, False)                 # the key's warm round, capture
+    metrics.reset_spans()
+    with counted_values() as seen:
+        (g_img, g_stats), _, g_graphs, g_wall, _ = on_route(frame, False)
+    totals = metrics.span_totals()
+    (e_img, e_stats), _, _, _, _ = on_route(frame, True)
+    pairs = timed_pairs(seen, "wavefront.round_device_ns",
+                        "wavefront.round_period_ns")
+    reads = metrics.total_of(totals, "wavefront.read").count
+    launches = metrics.total_of(totals, "wavefront.launch").count
+    equal = bool(torch.equal(g_img.view(torch.int32),
+                             e_img.view(torch.int32)))
+    assert equal and g_stats == e_stats, "phase 24: the routes' images differ"
+    assert len(pairs) == launches == g_graphs["replays"] \
+        == g_stats["iterations"] > 0, (len(pairs), launches, g_graphs)
+    assert reads == g_graphs["rounds"] + g_graphs["spans"], (reads, g_graphs)
+    assert all(0 < d <= p for d, p in pairs), pairs
+    rec["rounds"] = {
+        "config": "scene1 1200x675 4spp depth 20, layer 0",
+        "rounds": len(pairs), "wall_s": g_wall, "bit_equal": equal,
+        "device_ms": [d / 1e6 for d, _ in pairs],
+        "period_ms": [p / 1e6 for _, p in pairs],
+        "launch_ms": metrics.total_of(totals, "wavefront.launch").ns
+        / launches / 1e6}
+    gap = 1 - sum(d for d, _ in pairs) / sum(p for _, p in pairs)
+    log(f"spans (a) scene1 1200x675 @ 4spp depth 20, one layer: "
+        f"{len(pairs)} replayed rounds, device ms a round "
+        f"{statistics.median(rec['rounds']['device_ms']):.4f} (median), "
+        f"period ms {statistics.median(rec['rounds']['period_ms']):.4f}, "
+        f"every round 0 < device <= period, round gap {100 * gap:.3f}%, "
+        f"launch {rec['rounds']['launch_ms']:.4f} ms; image bit-equal to "
+        f"the eager route {equal} | {card}")
+
+    # (b) the step graph's timing events, phase 10's config
+    cam = cam1.replace(image_width=GRAD_W, image_height=GRAD_H, sqrt_spp=2,
+                       bounce_limit=8)
+    target = np.zeros((GRAD_H, GRAD_W, 3), np.float32)
+    graph, eager = make_train_step(meta1), make_train_step(meta1,
+                                                           _eager=True)
+    float(graph(data1, cam, target, GRAD_SEEDS[0])[0])
+    metrics.reset_spans()
+    got = {}
+    with counted_values() as seen:
+        for seed in GRAD_SEEDS[1:] + (GRAD_SEEDS[0],):
+            got[seed] = graph(data1, cam, target, seed)
+            float(got[seed][0])
+    steps = timed_pairs(seen, "train.step_device_ns", "train.step_period_ns")
+    counts = metrics.counters()
+    step_total = metrics.total_of(metrics.span_totals(), "train.step")
+    assert len(steps) == len(GRAD_SEEDS) - 1, steps
+    assert not counts.get("train.step_device_unread"), counts
+    assert all(0 < d <= p for d, p in steps), steps
+    want = {s: eager(data1, cam, target, s) for s in GRAD_SEEDS[1:]}
+    deterministic = same_bits(eager(data1, cam, target, GRAD_SEEDS[1]),
+                              want[GRAD_SEEDS[1]])
+    equal = all(same_bits(got[s], want[s]) for s in want)
+    if deterministic:
+        assert equal, "phase 24: the step routes differ"
+    for s in want:
+        (g_loss, g_grads), (e_loss, e_grads) = got[s], want[s]
+        torch.testing.assert_close(g_loss, e_loss, rtol=1e-4, atol=0.0)
+        scale = max(float(g.abs().max()) for g in e_grads.values())
+        for k, g in g_grads.items():
+            torch.testing.assert_close(g, e_grads[k], rtol=1e-3,
+                                       atol=1e-5 * scale)
+    rec["steps"] = {
+        "config": f"scene1 {GRAD_W}x{GRAD_H} 4spp depth 8",
+        "device_ms": [d / 1e6 for d, _ in steps],
+        "period_ms": [p / 1e6 for _, p in steps],
+        "bit_equal": equal, "eager_deterministic": deterministic,
+        "step_host_ms": step_total.ns / step_total.count / 1e6}
+    log(f"spans (b) train step scene1 {GRAD_W}x{GRAD_H} @ 4spp depth 8: "
+        f"{len(steps)} read replays, device ms "
+        f"{', '.join(f'{x:.3f}' for x in rec['steps']['device_ms'])}, "
+        f"period ms "
+        f"{', '.join(f'{x:.3f}' for x in rec['steps']['period_ms'])}, host "
+        f"ms a step {rec['steps']['step_host_ms']:.3f}; bit-equal to the "
+        f"eager route {equal} (two eager steps bit-equal {deterministic}) "
+        f"| {card}")
+
+    # (c) one viewer call under metrics.trace, scene 1's preview
+    cam = cam1
+    view(data1, meta1, cam, [("frame",), ("key", "w"), ("frame",),
+                             ("frame",)], seed=SEED, preview_spt=1,
+         device=dev, log=io.StringIO())
+    torch.cuda.synchronize()
+    d = os.path.join(out_dir(), "spans_trace")
+    events = [("key", "a")] + [("frame",)] * 8
+    t0 = time.perf_counter()
+    with metrics.trace(d) as prof:
+        view(data1, meta1, cam, events, seed=SEED, preview_spt=1,
+             device=dev, log=io.StringIO())
+    wall = time.perf_counter() - t0
+    mirrored = sum(1 for e in prof.profiler.kineto_results.events()
+                   if e.device_type() != DeviceType.CPU
+                   and SPAN_NAME.match(e.name()))
+    idle, long = idle_by_span(prof)
+    with open(os.path.join(d, "trace.json")) as f:
+        trace = json.load(f)
+    names = {}
+    for e in trace.get("traceEvents", []):
+        if SPAN_NAME.match(str(e.get("name", ""))):
+            names[e["name"]] = names.get(e["name"], 0) + 1
+    assert mirrored == 0, f"phase 24: {mirrored} device events of spans"
+    for name in ("viewer.frame", "viewer.copy_out", "viewer.finish",
+                 "wavefront.call", "wavefront.read", "wavefront.launch"):
+        assert names.get(name), f"phase 24: no {name} in trace.json"
+    rec["viewer_trace"] = {
+        "events": "a camera event and 8 one-sample frames, scene1 "
+                  "1200x675 depth 20", "wall_s": wall,
+        "idle_s_by_span": idle, "spans_in_trace": names,
+        "gaps_over_1ms": [{"ms": n / 1e6, "spans": {k: v / 1e6
+                                                    for k, v in p.items()}}
+                          for _, n, p in long]}
+    log(f"spans (c) one viewer call under metrics.trace (wall {wall:.3f} "
+        f"s): device idle s by innermost span "
+        + ", ".join(f"{k} {v:.6f}" for k, v in
+                    sorted(idle.items(), key=lambda kv: -kv[1]))
+        + f"; {len(long)} gaps over 1 ms; span events in trace.json "
+        f"{names} | {card}")
+    for g in rec["viewer_trace"]["gaps_over_1ms"]:
+        log(f"  gap {g['ms']:.3f} ms: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in g["spans"].items()))
+    assert not any(OUTSIDE in p for _, _, p in long), \
+        "phase 24: a device gap over 1 ms outside the viewer's spans"
+
+    # (d) the recorder's cost on this host
+    rec["span_ns"] = span_cost()
+    log(f"spans (d) ns a span on this host: {rec['span_ns']}")
+    return rec
+
+
+def span_cost(n=100_000):
+    """ns a ``metrics.span`` takes on this host, recorded (no profiler)
+    and forwarded (under a CPU profiler), each over ``n`` spans."""
+    out = {}
+    for mode in ("recorded", "forwarded"):
+        prof = (torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU])
+            if mode == "forwarded" else contextlib.nullcontext())
+        with prof:
+            t0 = time.perf_counter_ns()
+            for _ in range(n):
+                with metrics.span("cost.span"):
+                    pass
+            out[mode] = (time.perf_counter_ns() - t0) / n
+    metrics.reset_spans()
+    return out
+
+
 def phase_done(n, t_phase, t_start):
     """Logs phase ``n``'s seconds; returns the clock for the next phase."""
     now = time.perf_counter()
@@ -3157,7 +3367,11 @@ def main():
 
     # ---- 23. the lockstep forward's CUDA graphs against its eager route
     lockstep_graph = lockstep_graph_phase(dev, card)
-    phase_done(23, t_phase, t_start)
+    t_phase = phase_done(23, t_phase, t_start)
+
+    # ---- 24. the program's spans and its graphs' timing events ----
+    spans = spans_phase(dev, card)
+    phase_done(24, t_phase, t_start)
 
     launches = {"none": counts9["none"], "bvh": counts16m["bvh"],
                 "cull": counts9c["cull"], "bwd": counts10["bwd"],
@@ -3177,6 +3391,7 @@ def main():
         f"{json.dumps(tools['config5_launches'])}, bench scene 5 and --grad "
         f"{json.dumps(tools['bench_launches'])}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"spans": spans}))
     log(json.dumps({"lockstep_graph": lockstep_graph}))
     log(json.dumps({"step_graph": step_graph}))
     log(json.dumps({"span_graph": span_graph}))

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import metrics
 from ..camera import Camera
 from ..device import require_cuda
 from ..rng import DEFAULT_SEED
@@ -275,6 +276,17 @@ def make_train_step(meta: SceneMeta, mesh: Mesh | None = None, device=None,
     all-reduce runs after the replay, outside the graph (gloo cannot be
     captured).  ``step_graph_count`` counts steps, captures, recaptures,
     replays and capture seconds.
+
+    Spans: a call is "train.step"; in it "train.prep" (``_prep``; a miss
+    adds to the counter "train.prep_miss"), "train.copy_in" (the copy into
+    the static operands), "train.launch" (the replay), "train.out" (the
+    result clones), "train.eager" (the key's eager first step, beside its
+    "graphs.capture") and "train.all_reduce".  Each replay stamps its
+    device time (``graphs.capture``); the next call reads it on entry, if
+    the replay is done, into the counter "train.step_device_ns", and the
+    host's time from the replayed call's start to its own into
+    "train.step_period_ns"; a replay not yet done when the next call
+    starts is not waited for but counted in "train.step_device_unread".
     """
     if mesh is None:
         device = require_cuda() if device is None else torch.device(device)
@@ -361,13 +373,14 @@ def make_train_step(meta: SceneMeta, mesh: Mesh | None = None, device=None,
                 out["loss"], out["grads"] = _body(*static)
 
             # the warm-up, eager: this call's result
-            first = _body(*static)
+            with metrics.span("train.eager"):
+                first = _body(*static)
             captured, replay = _capture(body, device)
             graph.update(key=key, graph=captured, replay=replay,
                          static=static, out=out)
-            return first
+            return first, None
         data, _leaves, cam_s, target_s, pix_s, seed_s, _ = graph["static"]
-        with torch.no_grad():
+        with torch.no_grad(), metrics.span("train.copy_in"):
             if not hit:
                 for dst, src in zip(tensors(data) + tensors(cam_s)
                                     + [target_s, pix_s],
@@ -375,32 +388,59 @@ def make_train_step(meta: SceneMeta, mesh: Mesh | None = None, device=None,
                                     + [target, pix]):
                     dst.copy_(src)
             seed_s.fill_(seed)
-        graph["replay"]()
+        with metrics.span("train.launch"):
+            stamps = graph["replay"]()
         out = graph["out"]
-        return out["loss"].clone(), [g.clone() for g in out["grads"]]
+        with metrics.span("train.out"):
+            result = out["loss"].clone(), [g.clone() for g in out["grads"]]
+        return result, stamps
 
     collectives = Counter()
+    # the last replayed call's timing events and start, until the next call
+    last_replay = []
+
+    def _read_last_replay(start_ns):
+        """The counters of the last call's replay, if it is done."""
+        if not last_replay:
+            return
+        stamps, t0 = last_replay.pop()
+        if stamps[1].query():
+            metrics.count("train.step_device_ns",
+                          metrics.elapsed_ns(*stamps))
+            metrics.count("train.step_period_ns", start_ns - t0)
+        else:
+            metrics.count("train.step_device_unread")
 
     def run(data: SceneData, cam: Camera, target_img, seed=DEFAULT_SEED):
-        step_graph_count["steps"] += 1
-        hit, ops = _prep(data, cam, target_img)
-        if _graph_route(device, _eager):
-            loss, grads = _graph_step(hit, ops, int(seed) & 0xFFFFFFFF)
-        else:
-            data_dev, cam_dev, target, pix, off_axis = ops
-            leaves = {k: v.detach().requires_grad_()
-                      for k, v in _extract_diff(data_dev).items()}
-            loss, grads = _body(data_dev, leaves, cam_dev, target, pix,
-                                int(seed), off_axis)
-        collectives.clear()
-        if mesh is not None and mesh.groups:
-            bucket = torch.cat([loss.reshape(1)]
-                               + [g.reshape(-1) for g in grads])
-            collectives["all_reduce"] = _all_reduce(mesh, bucket, "grads")
-            loss = bucket[0]
-            parts = bucket[1:].split([g.numel() for g in grads])
-            grads = [p.reshape(g.shape) for p, g in zip(parts, grads)]
-        return loss, dict(zip(_DIFF_FIELDS, grads))
+        with metrics.span("train.step") as step:
+            step_graph_count["steps"] += 1
+            _read_last_replay(step.start)
+            with metrics.span("train.prep"):
+                hit, ops = _prep(data, cam, target_img)
+            if not hit:
+                metrics.count("train.prep_miss")
+            if _graph_route(device, _eager):
+                (loss, grads), stamps = _graph_step(
+                    hit, ops, int(seed) & 0xFFFFFFFF)
+                if stamps is not None:
+                    last_replay.append((stamps, step.start))
+            else:
+                data_dev, cam_dev, target, pix, off_axis = ops
+                leaves = {k: v.detach().requires_grad_()
+                          for k, v in _extract_diff(data_dev).items()}
+                loss, grads = _body(data_dev, leaves, cam_dev, target, pix,
+                                    int(seed), off_axis)
+            collectives.clear()
+            if mesh is not None and mesh.groups:
+                with metrics.span("train.all_reduce"):
+                    bucket = torch.cat([loss.reshape(1)]
+                                       + [g.reshape(-1) for g in grads])
+                    collectives["all_reduce"] = _all_reduce(mesh, bucket,
+                                                            "grads")
+                loss = bucket[0]
+                parts = bucket[1:].split([g.numel() for g in grads])
+                grads = [p.reshape(g.shape) for p, g in zip(parts, grads)]
+            return loss, dict(zip(_DIFF_FIELDS, grads))
 
     # attributes, not names ``run`` reads: a function that refers to
     # itself lives in a reference cycle, and a captured graph it holds would

@@ -13,7 +13,10 @@ first call's and the capture's seconds, the device's busy and idle shares
 of the step, device kernels per bounce, the forward and backward
 closest-hit kernels' device time (the backward's summed over its six
 ``closest_hit_bwd_*`` kernels) and the top kernels, beside the card's name
-and power limit.  Needs a CUDA card.
+and power limit; then the program's span totals and counters
+(``metrics``) of the unprofiled timed steps beside ``step_graph_count``,
+and each profiled step's device idle seconds by the innermost program
+span open on the host.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -26,10 +29,12 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from . import require_cuda
+from . import metrics, require_cuda
 from .device import card_line
 from .parallel.sharding import make_train_step, step_graph_count
-from .profile_wavefront import _device_us, device_times
+from .profile_wavefront import (
+    _device_us, device_times, idle_by_span, span_report,
+)
 from .scene import scenes as sc
 
 
@@ -63,15 +68,23 @@ def main(argv=None):
         first = timed(route, 69420)
         print(f"{route} route: first call {first:.4f} s, of it capture "
               f"{step_graph_count['capture_s'] - capture_s:.4f} s | {card}")
+    metrics.reset_spans()
+    before = dict(step_graph_count)
     for seed, order in ((69421, ("graph", "eager")),
                         (69422, ("eager", "graph"))):
         for route in order:
             walls[route].append(timed(route, seed))
+    graphs = {k: step_graph_count[k] - n for k, n in before.items()}
+    print(f"spans of the four timed steps (count, total, self, path) beside "
+          f"their {graphs['steps']} steps and {graphs['replays']} replays:")
+    print("\n".join(span_report(metrics.span_totals(), metrics.counters())))
 
     for route in routes:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             timed(route, 69423)
         kernels, busy_us, n_launch, modes = device_times(prof)
+        idle, _ = idle_by_span(prof)
         wall = statistics.median(walls[route])
         bwd = [e for e in kernels if "closest_hit_bwd_" in e.key]
         bwd_us = sum(_device_us(e) for e in bwd)
@@ -92,6 +105,9 @@ def main(argv=None):
         for e in sorted(kernels, key=_device_us, reverse=True)[:12]:
             print(f"  {_device_us(e) / 1e6:9.4f} {e.count:8d}  "
                   f"{e.key[:100]}")
+        print("  device idle (s) by innermost program span: " + ", ".join(
+            f"{k} {v:.6f}" for k, v in sorted(idle.items(),
+                                               key=lambda kv: -kv[1])))
 
 
 if __name__ == "__main__":

@@ -8,7 +8,9 @@ initialisation, and are then captured once into a ``torch.cuda.CUDAGraph``
 and replayed, each kept by its graph key across calls.  A replay reads
 and writes the addresses the capture saw, so what is captured works on
 static tensors that it writes in place, and makes no host read and no
-tensor from host data (``device.constant`` serves the constants).
+tensor from host data (``device.constant`` serves the constants).  Every
+graph starts and ends with a timing event, so each replay stamps its own
+device time, which the caller reads once the replay is done.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import time
 
 import torch
 
+from .. import metrics
 from . import closest_hit as ch
 
 
@@ -31,13 +34,19 @@ def graph_route(dev: torch.device, eager: bool) -> bool:
 
 def capture(fn, dev: torch.device, counts: dict):
     """Capture ``fn()`` into a CUDA graph (on ``torch.cuda.graph``'s side
-    stream, with its own memory pool); returns ``(graph, replay)``.
-    ``counts``' "captures" and "capture_s" count the capture, its
-    "replays" each replay.  The capture runs nothing on the card, so the
-    closest-hit launches it counted are taken back, and ``replay()`` adds
-    them each time it replays.  A failure raises."""
+    stream, with its own memory pool), in the span "graphs.capture";
+    returns ``(graph, replay)``.  ``counts``' "captures" and "capture_s"
+    count the capture, its "replays" each replay.  The capture runs
+    nothing on the card, so the closest-hit launches it counted are taken
+    back, and ``replay()`` adds them each time it replays.  The graph's
+    first and last work record two timing events (event-record nodes of
+    ``external`` events), which every replay stamps anew: ``replay()``
+    returns them, ``(start, end)``, for ``metrics.elapsed_ns`` once the
+    replay is done.  A failure raises."""
     before = dict(ch.launch_count)
     graph = torch.cuda.CUDAGraph()
+    stamps = tuple(torch.cuda.Event(enable_timing=True, external=True)
+                   for _ in range(2))
     t0 = time.perf_counter()
     # no cyclic collection while capturing (torch.cuda.graph collects just
     # before): a collected graph, an earlier step's, would destroy its
@@ -45,8 +54,11 @@ def capture(fn, dev: torch.device, counts: dict):
     collecting = gc.isenabled()
     gc.disable()
     try:
-        with torch.cuda.device(dev), torch.cuda.graph(graph):
+        with metrics.span("graphs.capture"), torch.cuda.device(dev), \
+                torch.cuda.graph(graph):
+            stamps[0].record()
             fn()
+            stamps[1].record()
     finally:
         if collecting:
             gc.enable()
@@ -60,6 +72,7 @@ def capture(fn, dev: torch.device, counts: dict):
         for k, n in held.items():
             ch.launch_count[k] += n
         counts["replays"] += 1
+        return stamps
 
     return graph, replay
 

@@ -54,6 +54,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import metrics
 from ..camera import Camera, CameraBasis, derive_basis, get_rays_soa
 from ..rng import DEFAULT_SEED
 from ..parallel.sharding import _all_reduce, check_mesh
@@ -343,21 +344,30 @@ def _kept_program(ops: SpanOperands, meta: SceneMeta, key, round_kw: dict):
     return _graphs["state"]
 
 
-def _run_kept(dev: torch.device) -> None:
+def _run_kept(dev: torch.device):
     """One round of the kept program: its key's first round eagerly (it
     builds or loads the kernel library and does torch's lazy
-    initialisation), then the capture, then replays."""
+    initialisation), then the capture, then replays.  The key's first two
+    rounds, the eager one and the replay right after the capture (whose
+    launch also uploads the graph), are the span "wavefront.warm", every
+    later replay "wavefront.launch"; such a replay's timing events are
+    returned, else None."""
     captured = _graphs["captured"]
     if captured is None:
-        if not _graphs["warm"]:
-            _graphs["round"]()
-            _graphs["warm"] = True
-            return
-        captured = _graphs["captured"] = _capture(_graphs["round"], dev)
-        graph_count["syncs"] += 1
-    captured[1]()
+        with metrics.span("wavefront.warm"):
+            if not _graphs["warm"]:
+                _graphs["round"]()
+                _graphs["warm"] = True
+                return None
+            captured = _graphs["captured"] = _capture(_graphs["round"], dev)
+            graph_count["syncs"] += 1
+            captured[1]()
+            return None
+    with metrics.span("wavefront.launch"):
+        return captured[1]()
 
 
+@metrics.spanned("wavefront.span")
 def _span_core(ops: SpanOperands, meta: SceneMeta, seed: int,
                fb: torch.Tensor, task_start: int, task_end: int, *,
                pool: int, window: int, spt: int, use_kernel: bool,
@@ -385,7 +395,10 @@ def _span_core(ops: SpanOperands, meta: SceneMeta, seed: int,
     tensors are filled (``_start_span``) and, once a call, ``ops`` is
     copied into the key's clones.  The loop condition is read on the host
     once a round.  A new key drops the old program; a failed capture or
-    replay raises and drops the key.
+    replay raises and drops the key.  Spans: "wavefront.copy_in" (the
+    copy into the key's clones), "wavefront.start", the loop's (``_loop``)
+    and "wavefront.drain" (the image's copy out and the useful count's
+    host read).
     ``eager`` (private: the card tests and chip_smoke.py compare the two
     routes with it) runs every round eagerly over ``ops``, as the CPU
     always does; both routes run the same ops on the same values."""
@@ -398,31 +411,49 @@ def _span_core(ops: SpanOperands, meta: SceneMeta, seed: int,
         key = (dev, meta, pool, window, spt, per, n_shards, shard_id,
                use_kernel, no_defocus, layout(ops))
         try:
-            with torch.no_grad():
+            with torch.no_grad(), metrics.span("wavefront.copy_in"):
                 state = _kept_program(ops, meta, key, round_kw)
-            _start_span(state, fb, seed, task_start, task_end)
+            with metrics.span("wavefront.start"):
+                _start_span(state, fb, seed, task_start, task_end)
             iters = _loop(state, functools.partial(_run_kept, dev))
         except Exception:
             drop_graph()
             raise
     else:
         round_, state = _make_round(ops, meta, **round_kw)
-        _start_span(state, fb, seed, task_start, task_end)
+        with metrics.span("wavefront.start"):
+            _start_span(state, fb, seed, task_start, task_end)
         iters = _loop(state, round_)
-    fb.copy_(state["fb"][:per])
-    graph_count["syncs"] += 1
-    return iters, int(state["useful"])
+    with metrics.span("wavefront.drain"):
+        fb.copy_(state["fb"][:per])
+        graph_count["syncs"] += 1
+        useful = int(state["useful"])
+    return iters, useful
 
 
 def _loop(state: dict, run) -> int:
     """``run()`` rounds while the loop condition holds, read on the host
-    once a round (one sync); returns the rounds run."""
+    once a round (one sync, the span "wavefront.read"); returns the rounds
+    run.  ``run()`` returns a replayed round's timing events
+    (``graphs.capture``) or None: the read after such a round has waited
+    for it, so its device time is read there into the counter
+    "wavefront.round_device_ns", and its period on the host's clock, from
+    the end of the read before its launch to the end of the read after
+    it, into "wavefront.round_period_ns"."""
     iters = 0
+    stamps = last = None
     while True:
         graph_count["syncs"] += 1
-        if not bool(state["go"]):
+        with metrics.span("wavefront.read") as read:
+            go = bool(state["go"])
+        if stamps is not None:
+            metrics.count("wavefront.round_device_ns",
+                          metrics.elapsed_ns(*stamps))
+            metrics.count("wavefront.round_period_ns", read.end - last)
+        if not go:
             return iters
-        run()
+        last = read.end
+        stamps = run()
         iters += 1
         graph_count["rounds"] += 1
 
@@ -433,6 +464,7 @@ def default_pool(meta: SceneMeta, n_pixels: int) -> int:
     return min(pool, max(1024, -(-n_pixels // 1024) * 1024))
 
 
+@metrics.spanned("wavefront.call")
 def render_wavefront(data: SceneData, meta: SceneMeta, cam: Camera,
                      device: torch.device | str | None = None,
                      seed=DEFAULT_SEED, pool=None,
@@ -473,6 +505,10 @@ def render_wavefront(data: SceneData, meta: SceneMeta, cam: Camera,
     ``closest_hit.auto_accel`` of the primitive count ("bvh" above 8192).
     Every mode gives the same closest hits.
 
+    The call is the span "wavefront.call"; "wavefront.operands" holds the
+    scene's and camera's moves to the device and ``span_operands``, and
+    each span of the task space is "wavefront.span" (``_span_core``).
+
     ``chunk``: accepted for the JAX package's signature, whose XLA
     intersector scans primitives in chunks of this size; the closest-hit
     kernel has no such chunk, so it changes nothing (the image is bit-equal
@@ -504,8 +540,6 @@ def render_wavefront(data: SceneData, meta: SceneMeta, cam: Camera,
         use_kernel = device.type == "cuda"
     elif use_kernel and device.type != "cuda":
         raise ValueError("use_kernel=True needs a CUDA device")
-    data = data.to(device)
-    cam = cam.to(device)
     W, H = cam.image_width, cam.image_height
     WH = W * H
     per = -(-WH // n)
@@ -550,7 +584,10 @@ def render_wavefront(data: SceneData, meta: SceneMeta, cam: Camera,
         spans = [(s0, min(s0 + tasks_per_call, end))
                  for s0 in range(start, end, tasks_per_call)]
 
-    ops = span_operands(data, meta, cam, accel)
+    with metrics.span("wavefront.operands"):
+        data = data.to(device)
+        cam = cam.to(device)
+        ops = span_operands(data, meta, cam, accel)
     rounds = []         # this rank's rounds, one entry a span
     useful = 0
     before = sum(mesh.collectives.values()) if mesh is not None else 0
