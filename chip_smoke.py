@@ -11,7 +11,15 @@ Phases, one line each or more (any failure raises and exits non-zero):
    shared memory (``-Xptxas -v``), the static SASS instruction mix of
    the "none", "bvh" and "cull" test kernels (``cuobjdump -sass``), and no
    float atomic in the backward's six kernels or in the "cull" kernels;
-3. philox: the pinned Philox vector of tests/test_rng.py, on the card;
+3. philox: nvcc-compiles csrc/philox.cu (its -Xptxas -v line), the pinned
+   Philox vector of tests/test_rng.py on the card, the kernel bit-equal to
+   the plain version (``rng.uniform4_plain``) on CPU copies of its
+   operands, its time one call and back to back at 2^18, 2^16 and 202,800
+   lanes beside its byte bound and the plain version's on the card, the
+   wrapper's host time part by part, the device kernels a draw dispatches
+   on each route (``torch.profiler``), and ``rng.launch_count`` after a
+   scene-1 frame and a train step (no plain call on card operands; the
+   kernels line's ``philox_uniform4`` row);
 4. parity: the CUDA closest-hit kernel in each accel mode ("none", "bvh",
    "cull") against its plain PyTorch version on the same card tensors, on
    eleven ray sets — scene 1 (2^18 camera rays and their bounces), scene 9
@@ -198,7 +206,8 @@ Phases, one line each or more (any failure raises and exits non-zero):
 
 Every phase prints its seconds.  Files go to build/chip_smoke/
 (git-ignored).  The last lines are a JSON record of phase 24
-(``{"spans": ...}``), a JSON record of phase 23
+(``{"spans": ...}``), a JSON record of phase 3 (``{"philox": ...}``), a
+JSON record of phase 23
 (``{"lockstep_graph": ...}``), a JSON record of phase 22
 (``{"step_graph": ...}``), a JSON record of phase 21
 (``{"span_graph": ...}``), a JSON record of phases 18-20
@@ -3145,6 +3154,211 @@ def span_cost(n=100_000):
     return out
 
 
+PHILOX_R = (1 << 18, 1 << 16, GRAD_W * GRAD_H)   # scene 1, 9, fit lanes
+# bytes a lane of a draw whose pixel, sample and bounce are int64 lane
+# tensors: three words read, four float32 written
+PHILOX_LANE_BYTES = 3 * 8 + 4 * 4
+
+
+def philox_lanes(R, dev, seed=0):
+    """Pixel, sample and bounce lane words at R lanes, the first ones at
+    the edges of the u32 range and beyond it (a word is its low 32 bits).
+    Phase 3's lanes and tests/test_torch_cuda.py's."""
+    g = np.random.RandomState(seed)
+    edge = np.array([0, 1, 2 ** 32 - 1, 2 ** 32 - 2, -1, -7, 2 ** 32,
+                     2 ** 33 + 5, 2 ** 62, -2 ** 63, 2 ** 63 - 1], np.int64)
+    pix = g.randint(0, 1 << 31, R, dtype=np.int64)
+    smp = g.randint(0, 1 << 12, R, dtype=np.int64)
+    pix[:len(edge)], smp[:len(edge)] = edge, edge[::-1]
+    bnc = g.randint(1, 50, R, dtype=np.int64)
+    return tuple(torch.from_numpy(x).to(dev) for x in (pix, smp, bnc))
+
+
+def _host_us(fn, reps=400, warmup=20):
+    """Median host microseconds of ``fn()`` by ``perf_counter_ns``, the
+    card left to run what it queues."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter_ns()
+        fn()
+        times.append(time.perf_counter_ns() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) / 1e3
+
+
+def philox_host_parts(dev, R=PHILOX_R[0]):
+    """The host time of one ``rng.uniform4`` call on scene 1's lane words
+    (three int64 lane tensors, a device seed, an int slot), part by part,
+    each timed alone on the call's own operands: the operands' sorting
+    (``rng._operand``), the output's allocation, the device context and
+    stream, the ctypes call, the rows' views; "rest" is the call less the
+    parts.  Beside it, CUDA events around the bare ctypes call (the
+    ``ms`` of one call with no Python wrapper).  Returns the record (us)."""
+    pix, smp, bnc = philox_lanes(R, dev, seed=R)
+    key = torch.tensor([SEED], device=dev)
+    words = [rng._operand(x, (R,)) for x in (pix, smp, bnc, 1)]
+    out = torch.empty((4, R), dtype=torch.float32, device=dev)
+    base = out.data_ptr()
+    lib = _build.load_library("philox")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = [a for value, t, stride in words
+            for a in (None if t is None else t.data_ptr(), value, stride)]
+    args += [key.data_ptr(), 0, rng.SEED2, R,
+             *(base + 4 * R * k for k in range(4)), stream]
+
+    def device_and_stream():
+        with torch.cuda.device(dev):
+            return torch.cuda.current_stream(dev).cuda_stream
+
+    parts = {
+        "operands": lambda: ([rng._operand(x, (R,))
+                              for x in (pix, smp, bnc, 1)],
+                             rng._operand(key, ())),
+        "empty": lambda: torch.empty((4, R), dtype=torch.float32,
+                                     device=dev),
+        "device_and_stream": device_and_stream,
+        "ctypes_call": lambda: lib.mort_philox_uniform4(*args),
+        "views": lambda: out.view(4, R).unbind(0),
+    }
+    rec = {"R": R, "call": _host_us(
+        functools.partial(rng.uniform4, key, pix, smp, bnc, 1))}
+    rec.update({k: _host_us(fn) for k, fn in parts.items()})
+    rec["rest"] = rec["call"] - sum(rec[k] for k in parts)
+    rec["bare_call_event_us"] = 1e3 * time_ms(
+        lambda: lib.mort_philox_uniform4(*args))
+    rec["call_event_us"] = 1e3 * time_ms(
+        functools.partial(rng.uniform4, key, pix, smp, bnc, 1))
+    log("philox host us a call (R=%d): %s" % (R, ", ".join(
+        f"{k} {v:.2f}" for k, v in rec.items() if k != "R")))
+    return rec
+
+
+def philox_kernels_a_call(dev, R=PHILOX_R[0]):
+    """Device kernels one draw dispatches on each route, under
+    ``torch.profiler``, with each caller's operands: the wavefront's
+    shading draw (pixel, sample and bounce lane tensors), the lockstep's
+    (its bounce a 0-dim device tensor), the camera's (bounce 0), each with
+    a device seed.  Returns {route: {caller: kernels}}."""
+    pix, smp, bnc = philox_lanes(R, dev, seed=R)
+    key = torch.tensor([SEED], device=dev)
+    callers = {"shading": (pix, smp, 1 + bnc, rng.SLOT_MAT_DIR),
+               "lockstep": (pix, smp,
+                            1 + torch.tensor(3, device=dev),
+                            rng.SLOT_MAT_DIR),
+               "camera": (pix, smp, 0, rng.SLOT_CAM_PIXEL)}
+    rec = {}
+    for route, fn in (("plain", rng.uniform4_plain),
+                      ("kernel", rng.uniform4)):
+        rec[route] = {}
+        for caller, words in callers.items():
+            fn(key, *words)
+            torch.cuda.synchronize()
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                fn(key, *words)
+                torch.cuda.synchronize()
+            rec[route][caller] = device_times(prof)[2]
+    log(f"philox device kernels a draw (torch.profiler, R={R}): {rec}")
+    assert all(n == 1 for n in rec["kernel"].values()), rec
+    return rec
+
+
+def philox_phase(dev, card):
+    """Phase 3: the Philox kernel's build, the pinned vector, the kernel
+    bit-equal to the plain version on CPU copies of its operands (the seed
+    an int and a device tensor, the bounce an int, a 0-dim tensor and a
+    lane tensor, slots 0-8), its time one call and back to back at the
+    pools' lane counts beside its bound and the plain version's on the
+    card, the wrapper's host parts (``philox_host_parts``), the device
+    kernels a draw on each route (``philox_kernels_a_call``), and
+    ``rng.launch_count`` after one scene-1 frame at its bench config and
+    one train step at phase 10's config.  Returns the record."""
+    t0 = time.perf_counter()
+    built = _build.library_path("philox").exists()
+    _build.load_library("philox")
+    log(f"build: philox {'loaded from cache' if built else 'compiled'} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for line in ptxas_report("philox"):
+        log(f"ptxas {line}")
+    u = rng.uniform4(SEED, torch.tensor([123], device=dev),
+                     torch.tensor([4], device=dev), 2, 1)
+    got = [float(x[0]) for x in u]
+    want = [0.7667282223701477, 0.9874579310417175,
+            0.48183852434158325, 0.6557576656341553]
+    assert got == want, f"philox on the card: {got} != {want}"
+    log(f"philox: pinned vector reproduced bit for bit on {dev}")
+
+    pix, smp, bnc = philox_lanes(PHILOX_R[0], dev)
+    seeds = (2 ** 31 + 977, torch.tensor([-12345], device=dev))
+    bounces = (3, torch.tensor(6, device=dev), bnc)
+    before = dict(rng.launch_count)
+    cases = 0
+    for seed in seeds:
+        for bounce in bounces:
+            for slot in range(9):
+                got = rng.uniform4(seed, pix, smp, bounce, slot)
+                cpu = [x.cpu() if isinstance(x, torch.Tensor) else x
+                       for x in (seed, pix, smp, bounce)]
+                want = rng.uniform4_plain(*cpu, slot)
+                for g, w in zip(got, want):
+                    assert torch.equal(g.cpu().view(torch.int32),
+                                       w.view(torch.int32)), (seed, slot)
+                cases += 1
+    moved = {k: rng.launch_count[k] - before[k] for k in before}
+    assert moved == {"kernel": cases, "plain": 0}, moved
+    log(f"philox kernel: bit-equal to the plain version on CPU copies in "
+        f"{cases} cases of {PHILOX_R[0]} lanes (seed int and device tensor; "
+        f"bounce int, 0-dim and lanes; slots 0-8)")
+
+    rec = {"card": card, "times": []}
+    for R in PHILOX_R:
+        pix, smp, bnc = philox_lanes(R, dev, seed=R)
+        key = torch.tensor([SEED], device=dev)
+        kern = functools.partial(rng.uniform4, key, pix, smp, bnc, 1)
+        plain = functools.partial(rng.uniform4_plain, key, pix, smp, bnc, 1)
+        row = {"R": R, "ms": time_ms(kern),
+               "ms_back_to_back": time_ms(kern, calls=10),
+               "plain_ms": time_ms(plain),
+               "plain_ms_back_to_back": time_ms(plain, calls=10),
+               "bound_ms": R * PHILOX_LANE_BYTES / HBM_BYTES_PER_S * 1e3}
+        row["roofline"] = row["bound_ms"] / row["ms_back_to_back"]
+        rec["times"].append(row)
+        log(f"philox R={R}: kernel one call {row['ms'] * 1e3:.2f} us, back "
+            f"to back {row['ms_back_to_back'] * 1e3:.2f} us, bound "
+            f"{row['bound_ms'] * 1e3:.2f} us (bytes, "
+            f"{PHILOX_LANE_BYTES} B a lane; {100 * row['roofline']:.1f}% of "
+            f"it); plain one call {row['plain_ms'] * 1e3:.1f} us, back to "
+            f"back {row['plain_ms_back_to_back'] * 1e3:.1f} us | {card}")
+
+    rec["host_us"] = philox_host_parts(dev)
+    rec["kernels_a_call"] = philox_kernels_a_call(dev)
+
+    world, cam = sc.random_spheres()
+    data, meta = world.compile()
+    before = dict(rng.launch_count)
+    render_wavefront(data, meta, cam, dev, seed=SEED)
+    torch.cuda.synchronize()
+    frame = {k: rng.launch_count[k] - before[k] for k in before}
+    wf.drop_graph()   # phase 5 renders this key from its first round
+    cam = cam.replace(image_width=GRAD_W, image_height=GRAD_H, sqrt_spp=2,
+                      bounce_limit=8)
+    target = np.zeros((GRAD_H, GRAD_W, 3), np.float32)
+    before = dict(rng.launch_count)
+    loss, _ = make_train_step(meta)(data, cam, target, SEED)
+    float(loss)
+    step = {k: rng.launch_count[k] - before[k] for k in before}
+    assert frame["plain"] == step["plain"] == 0, (frame, step)
+    assert frame["kernel"] > 0 and step["kernel"] > 0, (frame, step)
+    rec["launch_count"] = {"frame": frame, "step": step}
+    log(f"philox rng.launch_count: scene-1 frame {frame} (its key's eager "
+        f"round and capture; replays launch without a call), first train "
+        f"step {step} (eager, its checkpoint recompute and the capture), "
+        f"total {rng.launch_count}")
+    return rec
+
+
 def phase_done(n, t_phase, t_start):
     """Logs phase ``n``'s seconds; returns the clock for the next phase."""
     now = time.perf_counter()
@@ -3193,13 +3407,7 @@ def main():
     t_phase = phase_done(2, t_phase, t_start)
 
     # ---- 3. philox ----
-    u = rng.uniform4(SEED, torch.tensor([123], device=dev),
-                     torch.tensor([4], device=dev), 2, 1)
-    got = [float(x[0]) for x in u]
-    want = [0.7667282223701477, 0.9874579310417175,
-            0.48183852434158325, 0.6557576656341553]
-    assert got == want, f"philox on the card: {got} != {want}"
-    log(f"philox: pinned vector reproduced bit for bit on {dev}")
+    philox = philox_phase(dev, card)
     t_phase = phase_done(3, t_phase, t_start)
 
     # ---- 4. every mode vs the plain version, and timings ----
@@ -3392,6 +3600,7 @@ def main():
         f"{json.dumps(tools['bench_launches'])}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"spans": spans}))
+    log(json.dumps({"philox": philox}))
     log(json.dumps({"lockstep_graph": lockstep_graph}))
     log(json.dumps({"step_graph": step_graph}))
     log(json.dumps({"span_graph": span_graph}))
@@ -3409,6 +3618,18 @@ def main():
     shapes = dict.fromkeys(ch.ACCELS, f"scene9 R={R_SCENE9}")
     shapes["bwd"] = f"scene1 grad R={GRAD_W * GRAD_H}"
     shapes["aaq"] = f"scene5 R={kern['aaq']['R']}"
+    p18 = philox["times"][0]
+    philox_row = {
+        "name": "philox_uniform4", "route": "cuda",
+        "source": "mort_tpu_torch/csrc/philox.cu",
+        "replaces": "none (plain XLA in mort_tpu/rng.py)",
+        "launches": sum(philox["launch_count"][k]["kernel"]
+                        for k in ("frame", "step")),
+        "max_abs_err": 0.0, "ms": p18["ms"],
+        "ms_back_to_back": p18["ms_back_to_back"],
+        "plain_ms": p18["plain_ms"], "bound_ms": p18["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "shape": f"scene1 R={p18['R']}"}
     log(json.dumps({"kernels": [{
         "name": names[k], "route": "cuda",
         "source": "mort_tpu_torch/csrc/closest_hit.cu",
@@ -3417,7 +3638,8 @@ def main():
         "ms_back_to_back": kern[k]["ms_back_to_back"],
         "plain_ms": kern[k]["plain_ms"], "bound_ms": kern[k]["bound_ms"],
         "bound_by": kern[k]["bound_by"], "library_ms": None,
-        "shape": shapes[k]} for k in ch.ACCELS + ("bwd", "aaq")]}))
+        "shape": shapes[k]} for k in ch.ACCELS + ("bwd", "aaq")]
+        + [philox_row]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

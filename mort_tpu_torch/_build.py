@@ -32,7 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_L = ctypes.c_longlong
+_L, _U = ctypes.c_longlong, ctypes.c_uint
 _LP = ctypes.POINTER(_L)
 # C signatures of each library's exported functions: (restype, argtypes).
 SIGNATURES = {
@@ -48,6 +48,11 @@ SIGNATURES = {
                                       _I, _I, _I, _I, _F, _P, _P, _P, _P,
                                       _P, _L, _P, _L, _P)),
         "mort_cuda_error_string": (ctypes.c_char_p, (_I,)),
+    },
+    "philox": {
+        "mort_philox_uniform4": (_I, (_P, _U, _I) * 4 + (_P, _U, _U, _L,
+                                                          _P, _P, _P, _P,
+                                                          _P)),
     },
 }
 

@@ -12,12 +12,18 @@ in ``int64`` tensors holding values in [0, 2^32).  A plain int64 product of
 two u32 words can exceed 2^63, so ``mulhi``/``mullo`` are built from 16-bit
 limbs of the (constant) multiplier: every partial product stays below 2^49.
 
+On the card ``uniform4`` launches one kernel (``csrc/philox.cu``) that
+computes the block in registers; the limb code (``uniform4_plain``) is the
+plain version, which the CPU takes and the kernel equals bit for bit.
+
 ``philox4x32_np``/``uniform4_np`` are the numpy mirror of the same stream
 (the JAX package's, used by oracles and fixtures that run without a
 device).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -117,15 +123,103 @@ def _bits_to_unit(x: torch.Tensor) -> torch.Tensor:
     return (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
+# uniform4's draws by route: "kernel" the Philox kernel's launches (one a
+# draw of CUDA operands that reached the card; a draw of no lanes launches
+# none), "plain" the draws of ``uniform4_plain`` that returned (a captured
+# draw counts once, its replays not at all)
+launch_count = {"kernel": 0, "plain": 0}
+
+
 def uniform4(seed, pixel, sample, bounce_plus1, slot):
     """Four independent uniforms in [0, 1) for the given counter.
 
     ``pixel``/``sample`` may be tensors (broadcast together);
     ``bounce_plus1`` and ``slot`` are tensors or ints (0 = camera-level);
     ``seed`` an int or an int64 tensor of one element (``philox4x32``).
+    Where any operand is a CUDA tensor, one launch of the Philox kernel on
+    the current stream (``_launch``); else ``uniform4_plain``.  Both give
+    the same bits.
     """
+    words = (pixel, sample, bounce_plus1, slot, seed)
+    for x in words:
+        if isinstance(x, torch.Tensor) and x.is_cuda:
+            return _launch(x.device, *words)
+    out = uniform4_plain(seed, pixel, sample, bounce_plus1, slot)
+    launch_count["plain"] += 1
+    return out
+
+
+def uniform4_plain(seed, pixel, sample, bounce_plus1, slot):
+    """``uniform4`` by the limb code, on any device: the kernel's plain
+    version."""
     r = philox4x32(pixel, sample, bounce_plus1, slot, seed, SEED2)
     return tuple(_bits_to_unit(w) for w in r)
+
+
+def _operand(x, shape):
+    """How the kernel reads one counter or key word of a draw of ``shape``:
+    ``(value, None, 0)`` for an int (its u32 wrap-around); ``(0, t, 0)``
+    for an integer tensor whose every element lies at one address (one
+    element, or one expanded), t int64 with that element first;
+    ``(0, t, 1)`` else, t the word broadcast to ``shape`` as a contiguous
+    int64 tensor (the tensor itself where it is one).  Raises on a float or
+    complex tensor, which ``_word`` would truncate."""
+    if not isinstance(x, torch.Tensor):
+        return int(x) & _M32, None, 0
+    if x.is_floating_point() or x.is_complex():
+        raise TypeError(f"uniform4: a counter or key word must be an int or "
+                        f"an integer tensor, got {x.dtype}")
+    if all(st == 0 or n == 1 for n, st in zip(x.shape, x.stride())):
+        return 0, x if x.dtype == torch.int64 else x.as_strided(
+            (1,), (1,)).to(torch.int64), 0
+    t = x.to(torch.int64)
+    if t.shape != shape:
+        t = t.broadcast_to(shape)
+    return 0, t.contiguous(), 1
+
+
+def _launch(dev, pixel, sample, bounce_plus1, slot, seed):
+    """``uniform4`` by the kernel on CUDA device ``dev``: four float32 rows
+    of one [4, N] buffer, each viewed as the counters' broadcast shape.
+    Operands not on ``dev`` are copied there (none on the main paths)."""
+    from ._build import load_library
+
+    def on(x):
+        if isinstance(x, (int, np.integer)):
+            return int(x)
+        return torch.as_tensor(x, device=dev)
+
+    counters = [on(c) for c in (pixel, sample, bounce_plus1, slot)]
+    seed = on(seed)
+    if isinstance(seed, torch.Tensor) and seed.numel() != 1:
+        raise ValueError(f"uniform4: the seed must be an int or a tensor of "
+                         f"one element, got shape {tuple(seed.shape)}")
+    shapes = {c.shape for c in counters if isinstance(c, torch.Tensor)}
+    # one shape (the main paths' lanes) needs no broadcast_shapes
+    shape = shapes.pop() if len(shapes) == 1 else torch.broadcast_shapes(
+        *shapes)
+    words = [_operand(c, shape) for c in counters] + [_operand(seed, ())]
+    n = math.prod(shape)
+    out = torch.empty((4, n), dtype=torch.float32, device=dev)
+    if n:
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
+        args = [a for value, t, stride in words[:4]
+                for a in (ptr(t), value, stride)]
+        value, t, _ = words[4]
+        base = out.data_ptr()
+        lib = load_library("philox")
+        with torch.cuda.device(dev):
+            rc = lib.mort_philox_uniform4(
+                *args, ptr(t), value, SEED2, n,
+                *(base + 4 * n * k for k in range(4)),
+                torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"philox kernel launch failed: CUDA error "
+                               f"{rc}")
+        launch_count["kernel"] += 1
+    return out.view(4, *shape).unbind(0)
 
 
 # -- numpy mirror ------------------------------------------------------------

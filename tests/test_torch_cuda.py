@@ -1,5 +1,5 @@
-"""The CUDA closest-hit kernel against its plain version, on the card,
-and the wavefront spans', the train step's and the lockstep forward's
+"""The CUDA closest-hit and Philox kernels against their plain versions, on
+the card, and the wavefront spans', the train step's and the lockstep forward's
 CUDA graphs against their eager routes.
 
 Marked ``cuda``: without a card every test skips.  Imports no jax, so on a
@@ -15,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from mort_tpu_torch import require_cuda
+from chip_smoke import philox_lanes
+from mort_tpu_torch import require_cuda, rng
 from mort_tpu_torch.camera import derive_basis, get_rays_soa
 from mort_tpu_torch.render import closest_hit as ch
 from mort_tpu_torch.render import wavefront as wf
@@ -1165,3 +1166,135 @@ def test_train_step_beside_lockstep_graphs(dev):
         for k, g in got[1].items():
             torch.testing.assert_close(g, want[1][k], rtol=1e-3,
                                        atol=1e-5 * scale)
+
+
+def _cpu(x):
+    return x.cpu() if isinstance(x, torch.Tensor) else x
+
+
+def _same_draws(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert torch.equal(g.cpu().view(torch.int32),
+                           w.cpu().view(torch.int32))
+
+
+@pytest.mark.parametrize("bounce", ["int", "0-dim", "lanes"])
+@pytest.mark.parametrize("seed", ["int", "tensor"])
+def test_philox_kernel_equals_plain(dev, seed, bounce):
+    """The kernel's four floats equal the plain version's on CPU copies of
+    the same operands bit for bit, for slots 0-8, with one launch a draw
+    and no plain call."""
+    pix, smp, bnc = philox_lanes(4099, dev)
+    seed = {"int": 2 ** 32 + 69420, "tensor": torch.tensor([-12345],
+                                                            device=dev)}[seed]
+    bounce = {"int": 7, "0-dim": torch.tensor(2 ** 32 + 3, device=dev),
+              "lanes": bnc}[bounce]
+    before = dict(rng.launch_count)
+    for slot in range(9):
+        got = rng.uniform4(seed, pix, smp, bounce, slot)
+        torch.cuda.synchronize()
+        _same_draws(got, rng.uniform4_plain(
+            *(_cpu(x) for x in (seed, pix, smp, bounce)), slot))
+    moved = {k: rng.launch_count[k] - n for k, n in before.items()}
+    assert moved == {"kernel": 9, "plain": 0}, moved
+
+
+def test_philox_kernel_broadcast_operands(dev):
+    """An expanded sample, an int32 pixel, a [1] bounce, a [3, 1] by
+    [1, n] broadcast and counters that are all ints (the shape is then the
+    seed tensor's scalar) equal the plain version's draws."""
+    pix, smp, _ = philox_lanes(1000, dev, seed=1)
+    seed = torch.tensor([5], device=dev)
+    for args in ((pix, smp[:1].expand_as(pix), torch.tensor([4], device=dev)),
+                 (pix.to(torch.int32), 9, 2),
+                 (pix[None, :], torch.arange(3, device=dev)[:, None], 3),
+                 (123, 4, 2)):
+        got = rng.uniform4(seed, *args, rng.SLOT_MIX)
+        _same_draws(got, rng.uniform4_plain(
+            *(_cpu(x) for x in (seed, *args)), rng.SLOT_MIX))
+
+
+def test_philox_kernel_refuses_float_operands(dev):
+    """A float word and a seed of two elements are refused before a
+    launch, which the count then does not take."""
+    before = dict(rng.launch_count)
+    with pytest.raises(TypeError):
+        rng.uniform4(1, torch.ones(8, device=dev), 0, 1, 0)
+    with pytest.raises(ValueError):
+        rng.uniform4(torch.tensor([1, 2], device=dev),
+                     torch.arange(8, device=dev), 0, 1, 0)
+    assert rng.launch_count == before
+
+
+def test_philox_graph_reads_seed_and_bounce(dev):
+    """A captured draw replayed after ``seed.fill_`` and ``bounce.fill_``
+    gives the eager draws of the new values: the kernel reads both through
+    their pointers at each replay."""
+    pix, smp, _ = philox_lanes(5000, dev, seed=2)
+    seed = torch.tensor([11], device=dev)
+    bounce = torch.zeros((), dtype=torch.int64, device=dev)
+    sample = smp[:1].expand_as(pix)
+
+    def draw():
+        return rng.uniform4(seed, pix, sample, 1 + bounce, rng.SLOT_FUZZ)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        draw()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = dict(rng.launch_count)
+    with torch.cuda.graph(graph):
+        out = draw()
+    assert rng.launch_count["kernel"] == before["kernel"] + 1
+    for s, b in ((2 ** 31 + 5, 4), (-3, 19), (0, 0)):
+        seed.fill_(s)
+        bounce.fill_(b)
+        graph.replay()
+        torch.cuda.synchronize()
+        _same_draws(out, rng.uniform4(s, pix, sample, 1 + b,
+                                      rng.SLOT_FUZZ))
+        _same_draws(out, rng.uniform4_plain(s, pix.cpu(), sample.cpu(),
+                                            1 + b, rng.SLOT_FUZZ))
+    assert rng.launch_count["plain"] == before["plain"]
+
+
+def _plain_on_cpu(dev, pixel, sample, bounce_plus1, slot, seed):
+    """``rng._launch``'s stand-in: the plain version on CPU copies."""
+    cpu = [_cpu(x) for x in (seed, pixel, sample, bounce_plus1, slot)]
+    return tuple(u.to(dev) for u in rng.uniform4_plain(*cpu))
+
+
+def test_philox_kernel_in_differentiable_trace(dev, monkeypatch):
+    """The eager train step (``trace(differentiable=True)``, whose
+    checkpoint recomputes each bounce's draws in the backward) through the
+    kernel against the same step with the draws of the plain version on
+    CPU copies: loss and gradients bit-equal where two kernel steps are,
+    else within ``_assert_step_routes``' tolerance."""
+    from mort_tpu_torch import make_train_step
+
+    world, cam = sc.random_spheres()
+    data, meta = world.compile()
+    cam = cam.replace(image_width=64, image_height=36, sqrt_spp=2,
+                      bounce_limit=8)
+    target = np.zeros((36, 64, 3), np.float32)
+    step = make_train_step(meta, _eager=True)
+    before = dict(rng.launch_count)
+    kern = [step(data, cam, target, 7) for _ in range(2)]
+    torch.cuda.synchronize()
+    moved = {k: rng.launch_count[k] - n for k, n in before.items()}
+    assert moved["kernel"] > 0 and moved["plain"] == 0, moved
+    monkeypatch.setattr(rng, "_launch", _plain_on_cpu)
+    plain = step(data, cam, target, 7)
+    assert rng.launch_count["plain"] == before["plain"]
+    if _same_bits(kern[0], kern[1]):
+        assert _same_bits(kern[0], plain)
+        return
+    (k_loss, k_grads), (p_loss, p_grads) = kern[0], plain
+    torch.testing.assert_close(k_loss, p_loss, rtol=1e-4, atol=0.0)
+    scale = max(float(x.abs().max()) for x in p_grads.values())
+    for name, x in k_grads.items():
+        torch.testing.assert_close(x, p_grads[name], rtol=1e-3,
+                                   atol=1e-5 * scale)
