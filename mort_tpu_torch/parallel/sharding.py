@@ -161,6 +161,17 @@ def _all_reduce(mesh: Mesh, t: torch.Tensor, what: str) -> int:
     return len(mesh.groups)
 
 
+def _all_reduce_events(mesh: Mesh | None, device: torch.device):
+    """Two timing events that bracket the train step's all-reduce on a card
+    whose mesh has process groups (the bucket's ``torch.cat`` to its
+    split, on the current stream, which the replay runs on: ``make_mesh``
+    makes the mesh's card current), else None: the one-device paths
+    record nothing."""
+    if mesh is None or not mesh.groups or device.type != "cuda":
+        return None
+    return tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+
 def _padded_pixels(W, H, n_shards):
     WH = W * H
     per = -(-WH // n_shards)
@@ -287,6 +298,15 @@ def make_train_step(meta: SceneMeta, mesh: Mesh | None = None, device=None,
     host's time from the replayed call's start to its own into
     "train.step_period_ns"; a replay not yet done when the next call
     starts is not waited for but counted in "train.step_device_unread".
+    With a mesh that has process groups, each step adds its bucket's bytes
+    to "train.all_reduce_bytes"; on a card a replayed step's all-reduce is
+    also bracketed by two timing events (``_all_reduce_events``: the
+    collective and its wait for the slowest rank), which the next call
+    reads with the replay's stamps once the all-reduce's end is done:
+    "train.all_reduce_device_ns" and the count of such reads
+    "train.all_reduce_device_count" (so the step's reads and the
+    all-reduce's come in pairs; one not yet done counts in both
+    "train.step_device_unread" and "train.all_reduce_device_unread").
     """
     if mesh is None:
         device = require_cuda() if device is None else torch.device(device)
@@ -313,30 +333,44 @@ def make_train_step(meta: SceneMeta, mesh: Mesh | None = None, device=None,
     def _prep(data, cam, target_img):
         """(hit, operands): whether the caller's objects are the last
         call's, and their device operands (data, cam, target block, pixel
-        ids, the aaq rows off their axes)."""
+        ids, the aaq rows off their axes).  A miss makes again only what
+        changed: the camera's operands on its object, the target block
+        and the pixel ids on the target's object and the image's size.  A
+        fit that passes a new scene each step so copies nothing from the
+        host: a pageable upload of the pixel ids would wait for the card."""
         key = prep_cache.get("key")
         hit = (key is not None and key[0] is data and key[1] is cam
                and key[2] is target_img)
         if not hit:
-            pix, WH = _padded_pixels(cam.image_width, cam.image_height, n)
-            per = len(pix) // n
-            target = torch.as_tensor(
-                np.asarray(target_img, np.float32).reshape(-1, 3)
-                if not isinstance(target_img, torch.Tensor)
-                else target_img.reshape(-1, 3)).to(device, torch.float32)
-            target = torch.cat(
-                [target, target[-1:].expand(n * per - WH, 3)])
-            block = slice(sid * per, (sid + 1) * per)
-            pix = torch.from_numpy(pix[block]).to(device, torch.int64)
+            old = prep_cache.get("val")
+            size = (cam.image_width, cam.image_height)
+            if key is not None and key[1] is cam:
+                cam_dev = old[1]
+            else:
+                cam_dev = cam.to(device)
+            if (key is not None and key[2] is target_img
+                    and prep_cache["size"] == size):
+                target, pix = old[2], old[3]
+            else:
+                pix, WH = _padded_pixels(*size, n)
+                per = len(pix) // n
+                target = torch.as_tensor(
+                    np.asarray(target_img, np.float32).reshape(-1, 3)
+                    if not isinstance(target_img, torch.Tensor)
+                    else target_img.reshape(-1, 3)).to(device, torch.float32)
+                target = torch.cat(
+                    [target, target[-1:].expand(n * per - WH, 3)])
+                block = slice(sid * per, (sid + 1) * per)
+                target = target[block]
+                pix = torch.from_numpy(pix[block]).to(device, torch.int64)
             data_dev = data.to(device)
             off_axis = None
             if aaq_split:
                 with torch.no_grad():
                     off_axis = ch.aaq_off_axis(meta, ch.quad_records(
                         data_dev, quad_frames(data_dev)))
-            prep_cache.update(key=(data, cam, target_img),
-                              val=(data_dev, cam.to(device), target[block],
-                                   pix, off_axis))
+            prep_cache.update(key=(data, cam, target_img), size=size,
+                              val=(data_dev, cam_dev, target, pix, off_axis))
         return hit, prep_cache["val"]
 
     def _body(data, leaves, cam, target, pix, seed, off_axis):
@@ -396,20 +430,29 @@ def make_train_step(meta: SceneMeta, mesh: Mesh | None = None, device=None,
         return result, stamps
 
     collectives = Counter()
-    # the last replayed call's timing events and start, until the next call
+    # the last replayed call's timing events, start and whether its
+    # all-reduce was timed, until the next call
     last_replay = []
+    reduce_events = _all_reduce_events(mesh, device)
 
     def _read_last_replay(start_ns):
-        """The counters of the last call's replay, if it is done."""
+        """The counters of the last call's replay (and of its all-reduce),
+        if it is done."""
         if not last_replay:
             return
-        stamps, t0 = last_replay.pop()
-        if stamps[1].query():
+        stamps, t0, timed = last_replay.pop()
+        if (reduce_events if timed else stamps)[1].query():
             metrics.count("train.step_device_ns",
                           metrics.elapsed_ns(*stamps))
             metrics.count("train.step_period_ns", start_ns - t0)
+            if timed:
+                metrics.count("train.all_reduce_device_ns",
+                              metrics.elapsed_ns(*reduce_events))
+                metrics.count("train.all_reduce_device_count")
         else:
             metrics.count("train.step_device_unread")
+            if timed:
+                metrics.count("train.all_reduce_device_unread")
 
     def run(data: SceneData, cam: Camera, target_img, seed=DEFAULT_SEED):
         with metrics.span("train.step") as step:
@@ -419,11 +462,10 @@ def make_train_step(meta: SceneMeta, mesh: Mesh | None = None, device=None,
                 hit, ops = _prep(data, cam, target_img)
             if not hit:
                 metrics.count("train.prep_miss")
+            stamps = None
             if _graph_route(device, _eager):
                 (loss, grads), stamps = _graph_step(
                     hit, ops, int(seed) & 0xFFFFFFFF)
-                if stamps is not None:
-                    last_replay.append((stamps, step.start))
             else:
                 data_dev, cam_dev, target, pix, off_axis = ops
                 leaves = {k: v.detach().requires_grad_()
@@ -431,15 +473,26 @@ def make_train_step(meta: SceneMeta, mesh: Mesh | None = None, device=None,
                 loss, grads = _body(data_dev, leaves, cam_dev, target, pix,
                                     int(seed), off_axis)
             collectives.clear()
+            timed = False
             if mesh is not None and mesh.groups:
+                timed = reduce_events is not None and stamps is not None
                 with metrics.span("train.all_reduce"):
+                    if timed:
+                        reduce_events[0].record()
                     bucket = torch.cat([loss.reshape(1)]
                                        + [g.reshape(-1) for g in grads])
+                    metrics.count("train.all_reduce_bytes",
+                                  bucket.numel() * bucket.element_size())
                     collectives["all_reduce"] = _all_reduce(mesh, bucket,
                                                             "grads")
-                loss = bucket[0]
-                parts = bucket[1:].split([g.numel() for g in grads])
-                grads = [p.reshape(g.shape) for p, g in zip(parts, grads)]
+                    loss = bucket[0]
+                    parts = bucket[1:].split([g.numel() for g in grads])
+                    grads = [p.reshape(g.shape)
+                             for p, g in zip(parts, grads)]
+                    if timed:
+                        reduce_events[1].record()
+            if stamps is not None:
+                last_replay.append((stamps, step.start, timed))
             return loss, dict(zip(_DIFF_FIELDS, grads))
 
     # attributes, not names ``run`` reads: a function that refers to

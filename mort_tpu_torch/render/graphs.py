@@ -32,17 +32,36 @@ def graph_route(dev: torch.device, eager: bool) -> bool:
     return dev.type == "cuda" and not eager
 
 
+# one side stream a card to capture on: ``torch.cuda.graph``'s default
+# capture stream is made once, on the card of a process's first capture,
+# and entering it makes that card current, so a capture on another card
+# would run its work outside the capture (seen on the card as
+# cudaErrorStreamCaptureUnsupported)
+_capture_streams = {}
+
+
+def _capture_stream(dev: torch.device) -> torch.cuda.Stream:
+    """The side stream that captures on card ``dev`` run on."""
+    index = torch.device(dev).index
+    if index is None:
+        index = torch.cuda.current_device()
+    stream = _capture_streams.get(index)
+    if stream is None:
+        stream = _capture_streams[index] = torch.cuda.Stream(index)
+    return stream
+
+
 def capture(fn, dev: torch.device, counts: dict):
-    """Capture ``fn()`` into a CUDA graph (on ``torch.cuda.graph``'s side
-    stream, with its own memory pool), in the span "graphs.capture";
-    returns ``(graph, replay)``.  ``counts``' "captures" and "capture_s"
-    count the capture, its "replays" each replay.  The capture runs
-    nothing on the card, so the closest-hit launches it counted are taken
-    back, and ``replay()`` adds them each time it replays.  The graph's
-    first and last work record two timing events (event-record nodes of
-    ``external`` events), which every replay stamps anew: ``replay()``
-    returns them, ``(start, end)``, for ``metrics.elapsed_ns`` once the
-    replay is done.  A failure raises."""
+    """Capture ``fn()`` into a CUDA graph (on ``dev``'s side stream,
+    ``_capture_stream``, with its own memory pool), in the span
+    "graphs.capture"; returns ``(graph, replay)``.  ``counts``' "captures"
+    and "capture_s" count the capture, its "replays" each replay.  The
+    capture runs nothing on the card, so the closest-hit launches it
+    counted are taken back, and ``replay()`` adds them each time it
+    replays.  The graph's first and last work record two timing events
+    (event-record nodes of ``external`` events), which every replay stamps
+    anew: ``replay()`` returns them, ``(start, end)``, for
+    ``metrics.elapsed_ns`` once the replay is done.  A failure raises."""
     before = dict(ch.launch_count)
     graph = torch.cuda.CUDAGraph()
     stamps = tuple(torch.cuda.Event(enable_timing=True, external=True)
@@ -55,7 +74,7 @@ def capture(fn, dev: torch.device, counts: dict):
     gc.disable()
     try:
         with metrics.span("graphs.capture"), torch.cuda.device(dev), \
-                torch.cuda.graph(graph):
+                torch.cuda.graph(graph, stream=_capture_stream(dev)):
             stamps[0].record()
             fn()
             stamps[1].record()

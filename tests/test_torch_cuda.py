@@ -1298,3 +1298,68 @@ def test_philox_kernel_in_differentiable_trace(dev, monkeypatch):
     for name, x in k_grads.items():
         torch.testing.assert_close(x, p_grads[name], rtol=1e-3,
                                    atol=1e-5 * scale)
+
+
+def test_gloo_mesh_on_one_card_times_its_all_reduce(dev, tmp_path):
+    """Two gloo ranks sharing the card run five steps of the mesh fit
+    (``tests/test_torch_mesh_fit.py``'s worker, scene 1 at 64x36): the
+    replayed steps' all-reduces are timed by their events and read at the
+    next call without a host wait (the worker refuses every wait from its
+    second step on), their reads paired with the replays'; both ranks hold
+    the same scene."""
+    import test_torch_mesh_fit as mf
+
+    seeds = [11, 12, 13, 14, 15]
+    ranks = mf._run_world(2, tmp_path, seeds, device=f"cuda:{dev.index}",
+                          steps=5)
+    for res in ranks:
+        c = res["counters"]
+        assert res["per_step"] == [1] * 5
+        assert c["train.all_reduce_bytes"] == 5 * mf._bucket_bytes()
+        # replays of steps 2-4 read at the entries of steps 3-5
+        assert c["train.all_reduce_device_count"] == 3
+        assert c["train.all_reduce_device_ns"] > 0
+        assert c["train.step_device_ns"] > 0
+        assert "train.all_reduce_device_unread" not in c
+        assert "train.step_device_unread" not in c
+        assert res["losses"] == ranks[0]["losses"]
+        for th, th0 in zip(res["theta"], ranks[0]["theta"]):
+            for k in th:
+                np.testing.assert_array_equal(th[k], th0[k], err_msg=k)
+
+
+def test_train_step_on_a_second_card_equals_the_first(dev):
+    """The train step on cuda:1 (its own graph capture, the kernels
+    launched under that card) gives cuda:0's losses and gradients, eager
+    first step and replays alike: bit for bit where two runs on cuda:0 are
+    bit-equal to each other, else within ``_assert_step_routes``'
+    tolerance."""
+    from mort_tpu_torch import make_train_step
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    world, cam = sc.random_spheres()
+    data, meta = world.compile()
+    cam = cam.replace(image_width=64, image_height=36, sqrt_spp=2,
+                      bounce_limit=8)
+    target = np.full((36, 64, 3), 0.4, np.float32)
+    runs = []
+    for card in ("cuda:0", "cuda:0", "cuda:1"):
+        step = make_train_step(meta, device=card)
+        got = []
+        for k in range(3):
+            loss, grads = step(data, cam, target, 7 + k)
+            assert loss.device == torch.device(card)
+            got.append((loss.cpu(), {f: g.cpu() for f, g in grads.items()}))
+        runs.append(got)
+    stable = all(_same_bits(a, b) for a, b in zip(runs[0], runs[1]))
+    print(f"cuda:0 twice bit-equal: {stable}")
+    for (l0, g0), (l1, g1) in zip(runs[0], runs[2]):
+        if stable:
+            assert _same_bits((l0, g0), (l1, g1))
+            continue
+        torch.testing.assert_close(l1, l0, rtol=1e-4, atol=0.0)
+        scale = max(float(x.abs().max()) for x in g0.values())
+        for f, x in g1.items():
+            torch.testing.assert_close(x, g0[f], rtol=1e-3,
+                                       atol=1e-5 * scale)

@@ -144,6 +144,36 @@ def test_identity_cache(cornell):
     assert step.prep_cache["key"][0] is data2
 
 
+def test_new_scene_keeps_the_other_operands(cornell):
+    """A miss on a new scene alone keeps the camera's operands, the target
+    block and the pixel ids of the last call; a new target or image size
+    makes the target block and the pixel ids again, and a new camera of
+    the same size its own operands alone."""
+    _j, (data, meta, cam), target = cornell
+    cam = cam.replace(image_width=4, image_height=4, sqrt_spp=1,
+                      bounce_limit=2)
+    target = target[:4, :4]
+    step = make_train_step(meta, device="cpu")
+    step(data, cam, target)
+    _d, cam0, target0, pix0, _o = step.prep_cache["val"]
+    step(data.replace(), cam, target)
+    _d, cam1, target1, pix1, _o = step.prep_cache["val"]
+    assert cam1 is cam0 and target1 is target0 and pix1 is pix0
+    step(data, cam, target.copy())
+    _d, cam2, target2, pix2, _o = step.prep_cache["val"]
+    assert cam2 is cam0 and target2 is not target0 and pix2 is not pix0
+    torch.testing.assert_close(target2, target0, rtol=0, atol=0)
+    torch.testing.assert_close(pix2, pix0, rtol=0, atol=0)
+    cam3 = cam.replace()
+    step(data, cam3, target)
+    _d, cam4, target4, pix4, _o = step.prep_cache["val"]
+    assert cam4 is not cam0
+    assert target4 is not target2 and pix4 is not pix2
+    small = cam.replace(image_width=2, image_height=2)
+    step(data, small, target[:2, :2])
+    assert step.prep_cache["val"][3].shape == (4,)
+
+
 def test_mesh_is_not_ported(cornell):
     """A mesh must come from ``make_mesh`` (the sharded step is covered by
     tests/test_torch_sharding.py), and its device is the step's."""
