@@ -202,11 +202,24 @@ Phases, one line each or more (any failure raises and exits non-zero):
    device's idle gaps by the innermost span open on the host, those over
    1 ms listed with their spans, none of them outside the viewer's; (d)
    the recorder's cost on this host, ns a span recorded and forwarded to
-   a profiler.
+   a profiler;
+25. the noise kernel (``csrc/noise.cu``): its build (-Xptxas -v line),
+   ``textures.marble_kernel`` against ``marble_plain`` on the same card
+   operands (scene 9's noise row at the int32 lattice extremes and at
+   scales 0.5, 40 and 900) and against the CPU's plain route,
+   ``texture_value`` on every texture row of scenes 4 and 9 through both
+   routes (lanes off and the largest difference: bit-equal, or within
+   1e-6), its time one call and back to back at 2^16 and 2^18 lanes
+   beside its bound (operations) and the plain route's, the device kernels
+   a call on each route (``torch.profiler``, in a process of its own), and
+   ``textures.launch_count`` after one scene-9 frame at its bench config
+   from a new graph key (no plain call; the kernels line's
+   ``noise_marble`` row).
 
 Every phase prints its seconds.  Files go to build/chip_smoke/
 (git-ignored).  The last lines are a JSON record of phase 24
-(``{"spans": ...}``), a JSON record of phase 3 (``{"philox": ...}``), a
+(``{"spans": ...}``), a JSON record of phase 25 (``{"noise": ...}``), a
+JSON record of phase 3 (``{"philox": ...}``), a
 JSON record of phase 23
 (``{"lockstep_graph": ...}``), a JSON record of phase 22
 (``{"step_graph": ...}``), a JSON record of phase 21
@@ -259,6 +272,7 @@ from mort_tpu_torch.profile_wavefront import (  # noqa: E402
 )
 from mort_tpu_torch.camera import derive_basis, get_rays_soa  # noqa: E402
 from mort_tpu_torch.render import closest_hit as ch  # noqa: E402
+from mort_tpu_torch.render import textures as ttx  # noqa: E402
 from mort_tpu_torch.render import wavefront as wf  # noqa: E402
 from mort_tpu_torch.render.hitshade import finalize_and_shade  # noqa: E402
 from mort_tpu_torch.render.integrator import (  # noqa: E402
@@ -271,6 +285,7 @@ from mort_tpu_torch.render.primtable import build_prim_table  # noqa: E402
 from mort_tpu_torch.render.vec import V3  # noqa: E402
 from mort_tpu_torch.scene import scenes as sc  # noqa: E402
 from mort_tpu_torch.scene.build import World  # noqa: E402
+from mort_tpu_torch.scene.types import TEX_NOISE  # noqa: E402
 
 R_PARITY = 1 << 18          # the default pool of scene 1: the kernel's R
 R_SCENE9 = 1 << 16          # the default pool of scene 9 (> 1024 prims)
@@ -3359,6 +3374,246 @@ def philox_phase(dev, card):
     return rec
 
 
+# scene 9's pool and scene 1's: the lanes the noise kernel is timed at
+NOISE_R = (1 << 16, 1 << 18)
+# operations a noise lane costs in csrc/noise.cu whatever the data: an
+# octave's floors, fractions and twice-smoothed weights (30), lattice
+# products (9), the corners' six distinct weights (24), eight coefficients
+# (12), six offsets (6), eight hashes (60: two xors and the avalanche's
+# six), eight gradient dots (112) and their weighted sums (16), the
+# octave's weight and doubling (6): 275, seven octaves; then the lane's
+# scale, turbulence's abs, the marble and its sinf (~50)
+NOISE_LANE_OPS = 7 * 275 + 50
+# the rate those operations issue at: one instruction a float32 lane a
+# clock (128 lanes an SM, 132 SMs, 1.98 GHz), half FP32_OPS_PER_S, which
+# counts an FMA as two and the kernel has none; its u32 multiplies and
+# logic issue at half this rate again, so the bound is still a low one
+NOISE_OPS_PER_S = FP32_OPS_PER_S / 2
+# bytes a lane moves: its texture row (8), point (12), colour in and out
+# (24); the texture table, a few entries, stays in cache
+NOISE_LANE_BYTES = 8 + 12 + 24
+NOISE_SCALES = (0.5, 40.0, 900.0)
+
+
+def noise_lattice(n, seed=0):
+    """Random int32 lattice points, negative ones and the int32 extremes
+    included: phase 25's and ``tests/test_torch_textures.py``'s."""
+    g = np.random.RandomState(seed)
+    edge = np.array([[0, 0, 0], [-1, -1, -1], [2 ** 31 - 1, -2 ** 31, 1],
+                     [-2 ** 31, 2 ** 31 - 1, -1], [1, -1, 0], [-7, 3, -11]])
+    ijk = g.randint(-2 ** 31, 2 ** 31 - 1, size=(n, 3), dtype=np.int64)
+    ijk[: n // 2] = g.randint(-300, 300, size=(n // 2, 3))
+    ijk[:len(edge)] = edge[:n]
+    return ijk.astype(np.int32)
+
+
+def noise_lanes(R, dev, data, row, scale, seed=0):
+    """(tid, p, out) of R lanes on texture row ``row`` (a noise texture):
+    points whose scaled point s = scale_row * p lies at ``scale`` (normal,
+    that standard deviation) or, for "lattice", on ``noise_lattice``'s
+    points plus a fraction; random colours.  Phase 25's lanes and
+    tests/test_torch_cuda.py's."""
+    g = np.random.RandomState(seed)
+    if scale == "lattice":
+        s = noise_lattice(R, seed).astype(np.float64) + g.uniform(
+            0, 1, (R, 3))
+    else:
+        s = g.randn(R, 3) * scale
+    p = s / float(data.tex_noise_scale[row])
+    tid = torch.full((R,), row, dtype=torch.int64, device=dev)
+    return (tid, torch.from_numpy(p.astype(np.float32)).to(dev),
+            torch.from_numpy(g.rand(R, 3).astype(np.float32)).to(dev))
+
+
+def noise_off(got, want):
+    """(lanes whose bits differ, largest |difference|) of two results; a
+    NaN against a number differs by inf."""
+    got, want = got.cpu(), want.cpu()
+    same = (got.view(torch.int32) == want.view(torch.int32)) | (
+        got.isnan() & want.isnan())
+    diff = torch.where(same, 0.0, (got - want).abs().nan_to_num(
+        nan=float("inf")))
+    return (int((~same.all(-1)).sum()),
+            float(diff.max()) if diff.numel() else 0.0)
+
+
+def noise_rows(meta, R, dev, seed=0):
+    """(tid, u, v, p) of R lanes on every texture row of a scene, at
+    points spread over +-300."""
+    g = np.random.RandomState(seed)
+    return tuple(torch.from_numpy(x).to(dev) for x in (
+        g.randint(0, len(meta.tex_kind), R).astype(np.int32),
+        g.uniform(-0.1, 1.1, R).astype(np.float32),
+        g.uniform(-0.1, 1.1, R).astype(np.float32),
+        (g.randn(R, 3) * 300.0).astype(np.float32)))
+
+
+def texture_by(route, data, meta, tid, u, v, p):
+    """``texture_value`` by the kernel's route (no gradient recorded) or by
+    the plain route (``textures._card`` taken as False for the call), on
+    the same card operands."""
+    if route == "kernel":
+        with torch.no_grad():
+            return ttx.texture_value(data, meta, tid, u, v, p)
+    card = ttx._card
+    ttx._card = lambda t: False
+    try:
+        return ttx.texture_value(data, meta, tid, u, v, p)
+    finally:
+        ttx._card = card
+
+
+def noise_kernels_a_call():
+    """Device kernels one call dispatches on each route
+    (``torch.profiler``): ``marble_plain`` and ``marble_kernel`` at
+    R_SCENE9 lanes on scene 9's noise row, ``texture_value`` on scene 9's
+    rows.  Phase 25 runs it in a process of its own."""
+    dev = require_cuda()
+    world9, _ = sc.final_scene(400, 250, 4)
+    cpu9, meta9 = world9.compile()
+    data9 = cpu9.to(dev)
+    kind9 = torch.tensor(meta9.tex_kind, dtype=torch.int32, device=dev)
+    row9 = list(meta9.tex_kind).index(TEX_NOISE)
+    tid, p, out = noise_lanes(R_SCENE9, dev, data9, row9, 40.0)
+    lanes = noise_rows(meta9, R_SCENE9, dev, 9)
+    calls = {"marble.plain": functools.partial(
+        ttx.marble_plain, data9, kind9[tid], tid, p, out,
+        int(cpu9.tex_image_id[row9])),
+        "marble.kernel": functools.partial(ttx.marble_kernel, data9, kind9,
+                                           tid, p, out)}
+    for route in ("plain", "kernel"):
+        calls[f"texture_value.{route}"] = functools.partial(
+            texture_by, route, data9, meta9, *lanes)
+    rec = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rec[name] = device_times(prof)[2]
+    return rec
+
+
+def noise_phase(dev, card):
+    """Phase 25: the noise kernel's build; the kernel against the plain
+    route on the card (``marble_plain`` on the same card operands) on
+    scene 9's noise row at the lattice extremes and at scales 0.5, 40 and
+    900, and against the CPU's plain route; ``texture_value`` on every
+    texture row of scenes 4 and 9 on both routes; its time one call and
+    back to back at NOISE_R lanes beside its bound and the plain route's;
+    the device kernels one call dispatches on each route
+    (``noise_kernels_a_call``, in a process of its own);
+    ``textures.launch_count`` after one scene-9 frame at its bench config
+    from a new graph key.  Returns the record."""
+    t0 = time.perf_counter()
+    built = _build.library_path("noise").exists()
+    _build.load_library("noise")
+    log(f"build: noise {'loaded from cache' if built else 'compiled'} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for line in ptxas_report("noise"):
+        log(f"ptxas {line}")
+    world9, cam9 = sc.final_scene(400, 250, 4)
+    cpu9, meta9 = world9.compile()
+    data9 = cpu9.to(dev)
+    kind9 = torch.tensor(meta9.tex_kind, dtype=torch.int32, device=dev)
+    row9 = list(meta9.tex_kind).index(TEX_NOISE)
+    nid9 = int(cpu9.tex_image_id[row9])
+
+    rec = {"card": card, "marble": {}, "texture_value": {}, "times": []}
+    before = dict(ttx.launch_count)
+    for scale in ("lattice",) + NOISE_SCALES:
+        tid, p, out = noise_lanes(R_SCENE9, dev, data9, row9, scale)
+        got = ttx.marble_kernel(data9, kind9, tid, p, out)
+        want = ttx.marble_plain(data9, kind9[tid], tid, p, out, nid9)
+        cpu = ttx.marble_plain(cpu9, kind9.cpu()[tid.cpu()], tid.cpu(),
+                               p.cpu(), out.cpu(), nid9)
+        rec["marble"][str(scale)] = {"card_plain": noise_off(got, want),
+                                     "cpu_plain": noise_off(got, cpu)}
+    for idx in (4, 9):
+        world, _ = sc.build_scene(idx) if idx != 9 else (world9, None)
+        data, meta = world.compile()
+        data = data.to(dev)
+        lanes = noise_rows(meta, R_SCENE9, dev, idx)
+        got, want = (texture_by(route, data, meta, *lanes)
+                     for route in ("kernel", "plain"))
+        rec["texture_value"][f"scene{idx}"] = noise_off(got, want)
+    moved = {k: ttx.launch_count[k] - before[k] for k in before}
+    assert moved == {"kernel": 6, "plain": 2}, moved
+    off = [r["card_plain"] for r in rec["marble"].values()]
+    off += list(rec["texture_value"].values())
+    rec["bit_equal"] = all(n == 0 for n, _ in off)
+    rec["max_abs_err"] = max(err for _, err in off)
+    log(f"noise kernel against the plain route on the card (lanes off, "
+        f"max |diff|): {json.dumps(rec['marble'])}, texture_value "
+        f"{json.dumps(rec['texture_value'])}; bit-equal "
+        f"{rec['bit_equal']}")
+    # the kernel is held to the bits the card has shown (its sinf and
+    # floorf are torch's), and within the texture tests' 1e-6 besides
+    assert rec["bit_equal"] and rec["max_abs_err"] <= 1e-6, rec
+
+    for R in NOISE_R:
+        tid, p, out = noise_lanes(R, dev, data9, row9, 40.0, seed=R)
+        kinds = kind9[tid]
+        kern = functools.partial(ttx.marble_kernel, data9, kind9, tid, p,
+                                 out)
+        plain = functools.partial(ttx.marble_plain, data9, kinds, tid, p,
+                                  out, nid9)
+        ops_ms = R * NOISE_LANE_OPS / NOISE_OPS_PER_S * 1e3
+        bytes_ms = R * NOISE_LANE_BYTES / HBM_BYTES_PER_S * 1e3
+        row = {"R": R, "ms": time_ms(kern),
+               "ms_back_to_back": time_ms(kern, calls=10),
+               "plain_ms": time_ms(plain, reps=5),
+               "plain_ms_back_to_back": time_ms(plain, reps=3, calls=10),
+               "bound_ms": max(ops_ms, bytes_ms),
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+        row["roofline"] = row["bound_ms"] / row["ms_back_to_back"]
+        rec["times"].append(row)
+        log(f"noise R={R} (every lane on the noise row): kernel one call "
+            f"{row['ms'] * 1e3:.2f} us, back to back "
+            f"{row['ms_back_to_back'] * 1e3:.2f} us, bound "
+            f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}, "
+            f"{NOISE_LANE_OPS} operations and {NOISE_LANE_BYTES} B a lane; "
+            f"{100 * row['roofline']:.1f}% of it); plain one call "
+            f"{row['plain_ms']:.3f} ms, back to back "
+            f"{row['plain_ms_back_to_back']:.3f} ms | {card}")
+
+    # in a new process: after phases 1-24 the profiler loses some of a
+    # session's device events on the H100, a lone kernel's included; a new
+    # process loses none
+    res = subprocess.run(
+        [sys.executable, "-c", "import json, chip_smoke as c; "
+         "print(json.dumps(c.noise_kernels_a_call()))"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600)
+    if res.returncode:
+        raise RuntimeError(f"phase 25: noise_kernels_a_call failed:\n"
+                           f"{res.stderr[-4000:]}")
+    rec["kernels_a_call"] = json.loads(res.stdout.strip().splitlines()[-1])
+    log(f"noise device kernels a call (torch.profiler, R={R_SCENE9}; "
+        f"texture_value on scene 9's rows): {rec['kernels_a_call']}")
+    assert rec["kernels_a_call"]["marble.kernel"] == 1, rec
+
+    wf.drop_graph()   # a new key: its eager round and capture call
+    counts = dict(wf.graph_count)
+    before = dict(ttx.launch_count)
+    t0 = time.perf_counter()
+    render_wavefront(data9, meta9, cam9, dev, seed=SEED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    frame = {k: ttx.launch_count[k] - before[k] for k in before}
+    graphs = {k: wf.graph_count[k] - counts[k] for k in counts}
+    assert frame["plain"] == 0 and frame["kernel"] > 0, frame
+    rec["launch_count"] = {"frame": frame, "graph_count": graphs,
+                           "wall_s": wall}
+    log(f"noise textures.launch_count: scene-9 frame {frame} (its key's "
+        f"eager round and capture; replays launch without a call), graph "
+        f"counts {graphs}, wall {wall:.2f} s (with the capture), total "
+        f"{ttx.launch_count}")
+    return rec
+
+
 def phase_done(n, t_phase, t_start):
     """Logs phase ``n``'s seconds; returns the clock for the next phase."""
     now = time.perf_counter()
@@ -3579,7 +3834,11 @@ def main():
 
     # ---- 24. the program's spans and its graphs' timing events ----
     spans = spans_phase(dev, card)
-    phase_done(24, t_phase, t_start)
+    t_phase = phase_done(24, t_phase, t_start)
+
+    # ---- 25. the marble noise kernel ----
+    noise = noise_phase(dev, card)
+    phase_done(25, t_phase, t_start)
 
     launches = {"none": counts9["none"], "bvh": counts16m["bvh"],
                 "cull": counts9c["cull"], "bwd": counts10["bwd"],
@@ -3600,6 +3859,7 @@ def main():
         f"{json.dumps(tools['bench_launches'])}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"spans": spans}))
+    log(json.dumps({"noise": noise}))
     log(json.dumps({"philox": philox}))
     log(json.dumps({"lockstep_graph": lockstep_graph}))
     log(json.dumps({"step_graph": step_graph}))
@@ -3630,6 +3890,17 @@ def main():
         "plain_ms": p18["plain_ms"], "bound_ms": p18["bound_ms"],
         "bound_by": "bytes", "library_ms": None,
         "shape": f"scene1 R={p18['R']}"}
+    n16 = noise["times"][0]
+    noise_row = {
+        "name": "noise_marble", "route": "cuda",
+        "source": "mort_tpu_torch/csrc/noise.cu",
+        "replaces": "none (plain XLA in mort_tpu/render/textures.py)",
+        "launches": noise["launch_count"]["frame"]["kernel"],
+        "max_abs_err": noise["max_abs_err"], "ms": n16["ms"],
+        "ms_back_to_back": n16["ms_back_to_back"],
+        "plain_ms": n16["plain_ms"], "bound_ms": n16["bound_ms"],
+        "bound_by": n16["bound_by"], "library_ms": None,
+        "shape": f"scene9 noise row R={n16['R']}"}
     log(json.dumps({"kernels": [{
         "name": names[k], "route": "cuda",
         "source": "mort_tpu_torch/csrc/closest_hit.cu",
@@ -3639,7 +3910,7 @@ def main():
         "plain_ms": kern[k]["plain_ms"], "bound_ms": kern[k]["bound_ms"],
         "bound_by": kern[k]["bound_by"], "library_ms": None,
         "shape": shapes[k]} for k in ch.ACCELS + ("bwd", "aaq")]
-        + [philox_row]}))
+        + [philox_row, noise_row]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -54,6 +54,10 @@ SIGNATURES = {
                                                           _P, _P, _P, _P,
                                                           _P)),
     },
+    "noise": {
+        "mort_noise_marble": (_I, (_P, _P, _P, _P, _P, _I, _I, _P, _P, _L,
+                                   _P)),
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -15,6 +15,12 @@ especially), so 32-bit words live in int64 tensors holding values in
 (``& 0xFFFFFFFF``), xor and shifts act on the low 32 bits unchanged, and the
 low word of a product comes from 16-bit limbs of the constant multiplier
 (``_mullo``), so no partial product reaches 2^63.
+
+The marble noise texture on CUDA operands, with no gradient recorded
+through it, is one launch of ``csrc/noise.cu`` a call (``marble_kernel``),
+which evaluates every noise texture on its own lanes only; the limb code
+(``marble_plain``, one noise texture a call) is the CPU's and autograd's
+route and the kernel's plain version, which it equals on the card.
 """
 
 from __future__ import annotations
@@ -157,17 +163,102 @@ def _base_value(data: SceneData, meta: SceneMeta, kind_arr, tid, u, v, p):
             out = torch.where(sel[..., None], val, out)
 
     if meta.n_noise > 0:
-        noise_ids = data.tex_image_id[tid]
-        scale = data.tex_noise_scale[tid]
-        s = scale[..., None] * p
-        for nid in range(meta.n_noise):
-            # marble: 0.5*(1 + sin(s.z + 10*turb(s))) (textures.cuh:198-202)
-            marble = 0.5 * (1.0 + torch.sin(
-                s[..., 2] + 10.0 * _turbulence(s, noise_salt(nid))))
-            sel = (kinds == TEX_NOISE) & (noise_ids == nid)
-            out = torch.where(sel[..., None], marble[..., None], out)
+        if _kernel_route(p, out, data.tex_noise_scale):
+            out = marble_kernel(data, kind_arr, tid, p, out)
+        else:
+            for nid in range(meta.n_noise):
+                out = marble_plain(data, kinds, tid, p, out, nid)
+                launch_count["plain"] += 1
 
     return out
+
+
+# _base_value's marble evaluations by route: "kernel" the noise kernel's
+# launches that the runtime accepted (one a call on CUDA operands with no
+# gradient recorded; a call of no lanes launches none), "plain" the
+# evaluations of ``marble_plain`` that returned, one a noise texture (a
+# captured call counts once, its replays not at all)
+launch_count = {"kernel": 0, "plain": 0}
+
+
+def _card(t: torch.Tensor) -> bool:
+    """``_kernel_route``'s device test (CPU tests stand a card in here)."""
+    return t.is_cuda
+
+
+def _kernel_route(p, *operands) -> bool:
+    """Whether the marble kernel evaluates the noise: ``p`` on a card and
+    autograd recording no gradient through ``p`` or ``operands`` (the
+    kernel has no backward)."""
+    return _card(p) and not (torch.is_grad_enabled() and any(
+        t.requires_grad for t in (p, *operands)))
+
+
+def marble_plain(data: SceneData, kinds, tid, p, out, nid: int):
+    """Noise texture ``nid`` at the lanes of rows ``tid`` whose kind
+    (``kinds``) is noise, ``out`` elsewhere, by the limb code: the
+    kernel's plain version, on any device and under autograd."""
+    noise_ids = data.tex_image_id[tid]
+    scale = data.tex_noise_scale[tid]
+    s = scale[..., None] * p
+    # marble: 0.5*(1 + sin(s.z + 10*turb(s))) (textures.cuh:198-202)
+    marble = 0.5 * (1.0 + torch.sin(
+        s[..., 2] + 10.0 * _turbulence(s, noise_salt(nid))))
+    sel = (kinds == TEX_NOISE) & (noise_ids == nid)
+    return torch.where(sel[..., None], marble[..., None], out)
+
+
+def _checked(name, t, dtype, shape, dev):
+    if t.dtype != dtype:
+        raise TypeError(f"marble_kernel: {name} must be {dtype}, got "
+                        f"{t.dtype}")
+    if t.device != dev:
+        raise ValueError(f"marble_kernel: {name} is on {t.device}, the "
+                         f"points on {dev}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"marble_kernel: {name} has shape "
+                         f"{tuple(t.shape)}, expected {tuple(shape)}")
+    return t.contiguous()
+
+
+def marble_kernel(data: SceneData, kind_arr, tid, p, out):
+    """``marble_plain`` of every noise texture by the kernel
+    (``csrc/noise.cu``): one launch on the current stream, into a new
+    tensor of ``out``'s shape; the kernel reads the texture table
+    (``kind_arr``, ``data.tex_image_id``, ``data.tex_noise_scale``) at each
+    lane's row itself, and a lane on a noise row takes its noise id's
+    field.  ``p``, ``out``:
+    float32 [..., 3]; ``tid``: int64 of their lane shape; every operand on
+    ``p``'s device (refused otherwise, before any launch)."""
+    from .._build import load_library
+
+    dev = p.device
+    lanes = tuple(tid.shape)
+    n_tex = kind_arr.shape[0]
+    p = _checked("p", p, torch.float32, lanes + (3,), dev)
+    tid = _checked("tid", tid, torch.int64, lanes, dev)
+    out = _checked("out", out, torch.float32, lanes + (3,), dev)
+    kind_arr = _checked("the texture kinds", kind_arr, torch.int32,
+                        (n_tex,), dev)
+    noise_id = _checked("tex_image_id", data.tex_image_id, torch.int32,
+                        (n_tex,), dev)
+    scale = _checked("tex_noise_scale", data.tex_noise_scale,
+                     torch.float32, (n_tex,), dev)
+    new = torch.empty_like(out)
+    n = tid.numel()
+    if n:
+        lib = load_library("noise")
+        with torch.cuda.device(dev):
+            rc = lib.mort_noise_marble(
+                p.data_ptr(), tid.data_ptr(), kind_arr.data_ptr(),
+                noise_id.data_ptr(), scale.data_ptr(), n_tex, TEX_NOISE,
+                out.data_ptr(), new.data_ptr(), n,
+                torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"noise kernel launch failed: CUDA error "
+                               f"{rc}")
+        launch_count["kernel"] += 1
+    return new
 
 
 def texture_value(data: SceneData, meta: SceneMeta, tid, u, v, p):

@@ -1,6 +1,6 @@
-"""The CUDA closest-hit and Philox kernels against their plain versions, on
-the card, and the wavefront spans', the train step's and the lockstep forward's
-CUDA graphs against their eager routes.
+"""The CUDA closest-hit, Philox and noise kernels against their plain
+versions, on the card, and the wavefront spans', the train step's and the
+lockstep forward's CUDA graphs against their eager routes.
 
 Marked ``cuda``: without a card every test skips.  Imports no jax, so on a
 machine without jax it runs without the repository's conftest:
@@ -15,10 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import philox_lanes
+from chip_smoke import noise_lanes, noise_rows, philox_lanes, texture_by
 from mort_tpu_torch import require_cuda, rng
 from mort_tpu_torch.camera import derive_basis, get_rays_soa
 from mort_tpu_torch.render import closest_hit as ch
+from mort_tpu_torch.render import textures as ttx
 from mort_tpu_torch.render import wavefront as wf
 from mort_tpu_torch.render.intersect import quad_frames
 from mort_tpu_torch.render.primtable import build_prim_table
@@ -26,6 +27,7 @@ from mort_tpu_torch.render.vec import V3
 from mort_tpu_torch.render.wavefront import render_wavefront
 from mort_tpu_torch.scene import scenes as sc
 from mort_tpu_torch.scene.build import World
+from mort_tpu_torch.scene.types import TEX_NOISE, TEX_SOLID
 
 pytestmark = pytest.mark.cuda
 
@@ -1363,3 +1365,128 @@ def test_train_step_on_a_second_card_equals_the_first(dev):
         for f, x in g1.items():
             torch.testing.assert_close(x, g0[f], rtol=1e-3,
                                        atol=1e-5 * scale)
+
+
+# -- the marble noise kernel (csrc/noise.cu) ---------------------------------
+
+@pytest.fixture(scope="module")
+def scene9_textures():
+    """Scene 9's texture table on the card: (data, meta, kinds, noise
+    row)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "False)")
+    dev = require_cuda()
+    data, meta = sc.final_scene(400, 250, 4)[0].compile()
+    kinds = torch.tensor(meta.tex_kind, dtype=torch.int32, device=dev)
+    return data.to(dev), meta, kinds, list(meta.tex_kind).index(TEX_NOISE)
+
+
+def _same_texels(got, want):
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(got.cpu().view(torch.int32),
+                       want.cpu().view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [1, 255, 4099, 1 << 16])
+@pytest.mark.parametrize("scale", ["lattice", 0.5, 40.0, 900.0])
+def test_noise_kernel_equals_plain(scene9_textures, scale, n):
+    """The kernel's marble equals ``marble_plain`` on the same card
+    operands bit for bit, at the int32 lattice extremes and at scales
+    0.5, 40 and 900 of the scaled point, with one launch a call."""
+    data, meta, kinds, row = scene9_textures
+    tid, p, out = noise_lanes(n, kinds.device, data, row, scale, seed=n)
+    before = dict(ttx.launch_count)
+    got = ttx.marble_kernel(data, kinds, tid, p, out)
+    assert {k: ttx.launch_count[k] - v for k, v in before.items()} == {
+        "kernel": 1, "plain": 0}
+    nid = int(data.tex_image_id[row])
+    _same_texels(got, ttx.marble_plain(data, kinds[tid], tid, p, out, nid))
+
+
+@pytest.mark.parametrize("idx", [4, 9])
+def test_noise_texture_value_routes_equal(dev, idx):
+    """``texture_value`` on every texture row of scenes 4 and 9: the
+    kernel's route (no gradient) equals the plain route bit for bit; the
+    kernel evaluates every noise texture in one launch, the plain route
+    each noise texture once."""
+    world = sc.build_scene(idx)[0] if idx != 9 else sc.final_scene(
+        400, 250, 4)[0]
+    data, meta = world.compile()
+    data = data.to(dev)
+    lanes = noise_rows(meta, 1 << 16, dev, idx)
+    before = dict(ttx.launch_count)
+    got = texture_by("kernel", data, meta, *lanes)
+    want = texture_by("plain", data, meta, *lanes)
+    assert {k: ttx.launch_count[k] - v for k, v in before.items()} == {
+        "kernel": 1, "plain": meta.n_noise}
+    _same_texels(got, want)
+
+
+def test_noise_kernel_keeps_other_lanes(scene9_textures):
+    """Lanes of every other texture row and rows outside the table keep
+    their input colour, and so do the noise row's lanes once the table
+    gives that row another kind: lanes are chosen by kind."""
+    data, meta, kinds, row = scene9_textures
+    n = 4099
+    g = np.random.RandomState(3)
+    other = [r for r in range(len(meta.tex_kind)) if r != row]
+    rows = g.choice(other + [-1, len(meta.tex_kind)], n)
+    tid = torch.from_numpy(rows).to(kinds.device)
+    p = torch.from_numpy((g.randn(n, 3) * 300).astype(np.float32)).to(
+        kinds.device)
+    out = torch.from_numpy(g.rand(n, 3).astype(np.float32)).to(kinds.device)
+    _same_texels(ttx.marble_kernel(data, kinds, tid, p, out), out)
+    tid = torch.full((n,), row, device=kinds.device)
+    solid = kinds.clone()
+    solid[row] = TEX_SOLID
+    _same_texels(ttx.marble_kernel(data, solid, tid, p, out), out)
+
+
+def test_noise_graph_replays_equal_eager(scene9_textures):
+    """A captured ``texture_value`` replayed after new points and rows are
+    copied into its operands equals the eager call on them; the capture
+    counts one launch, the replays none."""
+    data, meta, kinds, _ = scene9_textures
+    dev = kinds.device
+    lanes = [x.clone() for x in noise_rows(meta, 5000, dev, 1)]
+
+    def call():
+        with torch.no_grad():
+            return ttx.texture_value(data, meta, *lanes)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = dict(ttx.launch_count)
+    with torch.cuda.graph(graph):
+        out = call()
+    assert ttx.launch_count["kernel"] == before["kernel"] + 1
+    for seed in (2, 3):
+        for x, y in zip(lanes, noise_rows(meta, 5000, dev, seed)):
+            x.copy_(y)
+        graph.replay()
+        torch.cuda.synchronize()
+        _same_texels(out, texture_by("plain", data, meta, *lanes))
+    assert ttx.launch_count["kernel"] == before["kernel"] + 1
+
+
+def test_noise_autograd_takes_the_plain_route(dev):
+    """Under autograd, with the points requiring grad, the card takes the
+    plain route (no launch) and the gradient reaches the points."""
+    data, meta = sc.build_scene(4)[0].compile()
+    data = data.to(dev)
+    tid, u, v, p = noise_rows(meta, 4096, dev, 4)
+    p = p.clone().requires_grad_()
+    before = dict(ttx.launch_count)
+    out = ttx.texture_value(data, meta, tid, u, v, p)
+    assert {k: ttx.launch_count[k] - n for k, n in before.items()} == {
+        "kernel": 0, "plain": meta.n_noise}
+    (g,) = torch.autograd.grad(out.sum(), p)
+    assert torch.isfinite(g).all() and g.abs().sum() > 0
+    with torch.no_grad():
+        _same_texels(out.detach(), ttx.texture_value(data, meta, tid, u, v,
+                                                     p))

@@ -257,7 +257,7 @@ def test_kernel_count_counts_launches(case, monkeypatch):
                                  "plain": before["plain"]}
 
 
-@pytest.mark.parametrize("name", ["closest_hit", "philox"])
+@pytest.mark.parametrize("name", ["closest_hit", "philox", "noise"])
 def test_signatures_name_the_exports(name):
     """``_build.SIGNATURES[name]`` declares exactly the functions that
     ``csrc/<name>.cu`` defines in its ``extern "C"`` block."""
