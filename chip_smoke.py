@@ -148,7 +148,7 @@ Phases, one line each or more (any failure raises and exits non-zero):
    1200x675 with spp and depth cut from 100 and 20 to 36 and 8 (the run's
    time; its scene-9 frames at 400x400, 16 spp, were cut for phase 23),
    in the order graph, eager, graph (the second graph frame replays the
-   kept key): wall, peak memory, host syncs, captures, capture seconds,
+   kept key): wall, peak memory, host reads, captures, capture seconds,
    the same stats and launches, the images by the image rule; then each
    route's frame once more under ``torch.profiler``: its idle share and
    kernels a bounce step; (c) three frames of one key each on the graph
@@ -474,7 +474,7 @@ def read_counts():
 
 def read_graphs(name=None):
     """The spans' graph counts since the last ``reset_counts``: spans,
-    rounds, captures, replays, host syncs and capture seconds; kept in
+    rounds, captures, replays, host reads and capture seconds; kept in
     GRAPHS under ``name``."""
     moved = {k: wf.graph_count[k] - _GRAPH_BASE[k] for k in _GRAPH_BASE}
     moved["capture_s"] = round(moved["capture_s"], 4)
@@ -2430,7 +2430,7 @@ def routes_frame(name, world, cam, dev, card):
     """Phase 21 (b): one config's frame on both routes in the order graph,
     eager, graph (the eager route, ~4-7x slower, once, between the other's
     two runs; the second graph frame replays the first's kept capture),
-    with the wall, peak memory, rounds, host syncs, captures and capture
+    with the wall, peak memory, rounds, host reads, captures and capture
     seconds of each; the same rounds, useful segments and launches on
     every run, the images by the image rule (over default spans
     index_add_'s atomic order may differ); then the frame once more on
@@ -2465,7 +2465,7 @@ def routes_frame(name, world, cam, dev, card):
         walls = [r[4] for r in runs[eager]]
         rec[key] = {
             "wall_s": walls, "peak_gib": max(r[5] for r in runs[eager])
-            / 2 ** 30, "host_syncs": runs[eager][0][3]["syncs"],
+            / 2 ** 30, "host_reads": runs[eager][0][3]["syncs"],
             "captures": [r[3]["captures"] for r in runs[eager]],
             "replays": [r[3]["replays"] for r in runs[eager]],
             "capture_s": [r[3]["capture_s"] for r in runs[eager]]}
@@ -2497,7 +2497,7 @@ def routes_frame(name, world, cam, dev, card):
         f"{g['idle_share']:.4f}, eager {e['idle_share']:.4f}; peak memory "
         f"graph {g['peak_gib']:.4f} GiB, eager {e['peak_gib']:.4f} GiB; "
         f"capture {', '.join(f'{c:.4f}' for c in g['capture_s'])} s; host "
-        f"syncs a frame graph {g['host_syncs']}, eager {e['host_syncs']}; "
+        f"reads a frame graph {g['host_reads']}, eager {e['host_reads']}; "
         f"graph vs eager image frac_within={frac:.5f}, mean_abs={mdiff:.3e}"
         f" | {card}")
     return rec
@@ -2884,7 +2884,7 @@ def lockstep_frame(dev, card):
     rec = {"config": f"{cam.image_width}x{cam.image_height} "
                      f"{cam.sqrt_spp ** 2}spp depth {cam.bounce_limit}",
            "bit_equal": True, "launches": first[1]["none"],
-           "bounces": first[2]["bounces"], "host_syncs": first[2]["syncs"]}
+           "bounces": first[2]["bounces"], "host_reads": first[2]["syncs"]}
     for eager, key in ((False, "graph"), (True, "eager")):
         r = runs[eager]
         rec[key] = {"wall_s": [x[3] for x in r],
@@ -2924,7 +2924,7 @@ def lockstep_frame(dev, card):
         f" idle share graph {g['idle_share']:.4f}, eager "
         f"{e['idle_share']:.4f}; kernels a bounce step graph "
         f"{g['kernels_per_bounce']:.1f}, eager {e['kernels_per_bounce']:.1f};"
-        f" {bounces} bounce steps, {rec['host_syncs']} host reads, "
+        f" {bounces} bounce steps, {rec['host_reads']} host reads, "
         f"{rec['launches']} none launches on both routes; images bit-equal"
         f" | {card}")
     return rec

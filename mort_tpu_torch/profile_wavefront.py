@@ -15,7 +15,7 @@ warm-up captured and that the same graph key keeps (the profiler
 attributes the kernels of a replay like eager ones).  Prints the device
 time by kernel, the closest-hit kernel's share of it by accel mode, the
 device's busy and idle shares of the unprofiled wall time, device kernels
-per bounce step, host syncs, graphs captured and replayed, capture
+per bounce step, host reads, graphs captured and replayed, capture
 seconds and peak device memory, beside the card's name and power limit;
 then the program's span totals and counters (``metrics``) of the
 unprofiled render, and the profiled window's device idle seconds by the
@@ -214,7 +214,7 @@ def main(argv=None):
           f" | {card}")
     print(f"span graphs: {graphs['spans']} spans, {graphs['captures']} "
           f"captured in {graphs['capture_s']:.4f} s, {graphs['replays']} of "
-          f"{graphs['rounds']} rounds replayed; {graphs['syncs']} host syncs; "
+          f"{graphs['rounds']} rounds replayed; {graphs['syncs']} host reads; "
           f"peak device memory {peak / 2 ** 30:.4f} GiB")
     print(f"device busy {busy_us / 1e6:.4f} s = "
           f"{busy_us / 1e6 / wall:.4f} of the unprofiled wall "

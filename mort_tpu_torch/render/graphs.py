@@ -1,20 +1,21 @@
 """Captured device programs: the port's counterpart of ``jax.jit``.
 
-A wavefront round (``wavefront._span_core``), a train step
-(``parallel.sharding.make_train_step``) and a lockstep sample's start and
-bounce (``renderer.radiance_batches``) each run once eagerly on a card,
-which builds or loads the kernel library and does torch's lazy
-initialisation, and are then captured once into a ``torch.cuda.CUDAGraph``
-and replayed, each kept by its graph key across calls.  A replay reads
-and writes the addresses the capture saw, so what is captured works on
-static tensors that it writes in place, and makes no host read and no
-tensor from host data (``device.constant`` serves the constants).  Every
-graph starts and ends with a timing event, so each replay stamps its own
-device time, which the caller reads once the replay is done.
+A wavefront round (``wavefront._span_core``), a lockstep sample's start
+and bounce (``renderer.radiance_batches``) and a train step
+(``make_train_step``) are each a ``KeptProgram``: kept
+by graph key across calls, its units run once eagerly on a card, which
+builds or loads the kernel library and does torch's lazy initialisation,
+and are then captured into a ``torch.cuda.CUDAGraph`` and replayed.  A
+replay reads and writes the addresses the capture saw, so what is captured
+works on static tensors that it writes in place, and makes no host read
+and no tensor from host data (``device.constant`` serves the constants).
+Every graph starts and ends with a timing event, so each replay stamps its
+own device time, which the caller reads once the replay is done.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import time
@@ -137,3 +138,94 @@ def layout(obj):
     if isinstance(obj, tuple):
         return tuple(layout(x) for x in obj)
     return obj
+
+
+def _span(name):
+    """The span ``name``, or none for None."""
+    return metrics.span(name) if name else contextlib.nullcontext()
+
+
+class KeptProgram:
+    """One captured device program kept by graph key across calls: the
+    counterpart of a jitted function's cache, with one entry.
+
+    ``entered(key, operands, build, dev)`` is the context of one use of
+    the program of ``key``, the caller's ``operands`` in its statics; it
+    gives the program's state.  A new key resets the old program's graphs
+    (one more ``counts["recaptures"]`` if there was one), clones
+    ``operands`` into new statics (``cloned``) and builds the program over
+    them: ``build(statics)`` returns ``(state, units)``, what the caller
+    fills and reads around a run and its units by name, each a function of
+    no argument that works on the statics and the state in place.  A kept
+    key copies every tensor of ``operands`` into the statics
+    (``tensors``' order), on every entry.  The key is the caller's: all
+    that a capture fixes besides the operands' values.
+
+    ``run(name)`` inside it: the unit's first run on its key is eager, on
+    the statics, and gives ``(its result, None)``; the unit is captured
+    right after it (``capture``).  Every later run is a replay and gives
+    ``(None, its timing events)``.  Any failure inside the context (the
+    entry, an eager run, a capture, a replay, or the caller's own reads
+    and writes around them, where a replay's device fault surfaces) drops
+    the key (``drop``) and raises.
+
+    ``counts`` (the caller's dict) counts the captures, recaptures,
+    replays and capture seconds.  The spans are the caller's names (None:
+    no span): ``copy_in`` the copy into a kept key's statics, ``warm`` a
+    unit's first run with its capture, ``eager`` that run alone and
+    ``launch`` a replay."""
+
+    def __init__(self, counts: dict, *, copy_in=None, warm=None, eager=None,
+                 launch=None):
+        self.counts = counts
+        self._spans = {"copy_in": copy_in, "warm": warm, "eager": eager,
+                       "launch": launch}
+        self._graphs = {}
+        self.drop()
+
+    def drop(self) -> None:
+        """Drop the kept program: its CUDA graphs (their hold on their
+        memory pools), its statics and state; the next entry builds
+        anew."""
+        for graph, _ in self._graphs.values():
+            graph.reset()
+        self._graphs = {}
+        self.key = self.state = self._statics = self._units = None
+
+    @contextlib.contextmanager
+    def entered(self, key, operands, build, dev: torch.device):
+        """One use of the kept program of ``key``, ``operands`` in its
+        statics; gives its state (the class docstring)."""
+        try:
+            with torch.no_grad():
+                if key != self.key:
+                    if self.key is not None:
+                        self.counts["recaptures"] += 1
+                    self.drop()
+                    statics = cloned(operands)
+                    self.state, self._units = build(statics)
+                    self.key, self._statics, self._dev = key, statics, dev
+                else:
+                    with _span(self._spans["copy_in"]):
+                        for dst, src in zip(tensors(self._statics),
+                                            tensors(operands)):
+                            dst.copy_(src)
+            yield self.state
+        except BaseException:
+            self.drop()
+            raise
+
+    def run(self, name: str):
+        """Run the unit ``name`` of the entered key: ``(result, None)``
+        eagerly, then captured, on its first run; ``(None, (start,
+        end))`` from a replay after."""
+        captured = self._graphs.get(name)
+        if captured is not None:
+            with _span(self._spans["launch"]):
+                return None, captured[1]()
+        unit = self._units[name]
+        with _span(self._spans["warm"]):
+            with _span(self._spans["eager"]):
+                result = unit()
+            self._graphs[name] = capture(unit, self._dev, self.counts)
+        return result, None

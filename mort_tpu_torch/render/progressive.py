@@ -133,7 +133,7 @@ def render_progressive_wavefront(data: SceneData, meta: SceneMeta,
 
     ``state.samples_done`` advances in whole layers (``spt`` samples each,
     ``spt`` defaulting to min(spp, 16)); resume must use the same ``seed``
-    and ``spt``.  ``mesh`` (``parallel.sharding.make_mesh``) shards each
+    and ``spt``.  ``mesh`` (``parallel.mesh.make_mesh``) shards each
     step's pixels over its ranks (then ``device`` defaults to the mesh's);
     ``state.fb`` stays in canonical pixel order on every rank, so a render
     checkpointed on one mesh size resumes on another bit-identically.  Only

@@ -22,9 +22,7 @@ from ..device import require_cuda
 from ..rng import DEFAULT_SEED
 from ..scene.build import SceneData, SceneMeta
 from . import closest_hit as ch
-from .graphs import (
-    capture, cloned, graph_route as _graph_route, layout, tensors,
-)
+from . import graphs
 from .integrator import (
     bounce_once, lockstep_graph_count, make_lanes, prepack, start_sample,
     trace,
@@ -70,7 +68,7 @@ def radiance_for_pixels(data: SceneData, meta: SceneMeta, cam: Camera,
     with that and ``off_axis`` given, nothing here reads the host or makes
     a tensor from host data once the closest-hit library is loaded and the
     ``device.constant``s exist, so a CUDA graph can capture the call
-    (``parallel.sharding.make_train_step``)."""
+    (the train step's, ``make_train_step``)."""
     if use_kernel is None:
         use_kernel = pixel_ids.device.type == "cuda"
     qf = quad_frames(data)
@@ -103,33 +101,8 @@ def _radiance(data, meta, qf, cam, basis, prepacked, seed, pixel_ids, chunk,
     return acc * (1.0 / (cam.sqrt_spp * cam.sqrt_spp))
 
 
-# the lockstep units' capture, counted in ``lockstep_graph_count`` (a test
-# puts a stand-in here)
-_capture = functools.partial(capture, counts=lockstep_graph_count)
-# the captured units of the current graph key: "key", "lanes" (the static
-# operands), and by unit name ("start", "bounce") "bodies" and "captured"
-# (graph, replay)
-_graphs = {}
-
-
-def _on_graph_route(dev: torch.device, eager: bool) -> bool:
-    """On a card, unless ``eager`` or a stream is capturing: a call made
-    inside another capture (``make_train_step``'s) stays in that one."""
-    return (_graph_route(dev, eager)
-            and not torch.cuda.is_current_stream_capturing())
-
-
-def _run(name: str, dev: torch.device) -> None:
-    """Replay the captured unit ``name``; on its key's first call, run it
-    eagerly on the static operands (part of the call's result) and capture
-    it."""
-    captured = _graphs["captured"].get(name)
-    if captured is not None:
-        captured[1]()
-        return
-    body = _graphs["bodies"][name]
-    body()
-    _graphs["captured"][name] = _capture(body, dev)
+# the kept lockstep units, "start" and "bounce"
+_program = graphs.KeptProgram(lockstep_graph_count)
 
 
 def radiance_batches(data: SceneData, meta: SceneMeta, cam: Camera,
@@ -155,17 +128,14 @@ def radiance_batches(data: SceneData, meta: SceneMeta, cam: Camera,
     ``render_sharded`` passes through; its result is a detached image)
     every bounce runs with no read, as the eager differentiable loop does.
 
-    The first call of a graph key runs its first start and bounce eagerly
-    on the static operands (building or loading the kernel library, torch's
-    lazy initialisation) and captures each (``render.graphs.capture``);
-    later calls copy the scene, camera and pack into the static operands,
-    the seed into its int64 device scalar and each batch into the pixel
-    ids, and replay.  The key: the device, ``meta``, ``batch``, ``chunk``,
-    ``closest_hit.aaq_off_axis`` (one host read a call on "none") and the
-    layout of the scene, the camera and the pack (shapes, the camera's
-    static fields, the route and accel mode; "cull"'s and "bvh"'s tables
-    depend on the data).  A new key drops the old graphs and captures
-    again.  Results are fresh tensors.  A failed capture or replay raises.
+    The two units are the module's ``graphs.KeptProgram`` over the scene,
+    camera and pack; each call then fills the seed's int64 device scalar
+    and each batch's pixel ids.  The key: the device, ``meta``, ``batch``,
+    ``chunk``, ``closest_hit.aaq_off_axis`` (one host read a call on
+    "none") and the layout of the scene, the camera and the pack (shapes,
+    the camera's static fields, the route and accel mode; "cull"'s and
+    "bvh"'s tables depend on the data).  A failure anywhere in the call
+    drops the key.  Results are fresh tensors.
 
     Eager, as ``radiance_for_pixels`` per batch: the CPU, ``eager`` (the
     card tests and chip_smoke.py compare the routes with it; ``render``
@@ -192,29 +162,21 @@ def radiance_batches(data: SceneData, meta: SceneMeta, cam: Camera,
     if pad:
         pixel_ids = torch.cat([pixel_ids, pixel_ids[-1:].expand(pad)])
     batches = pixel_ids.split(batch)
-    if not _on_graph_route(dev, eager):
+    # a call made inside another capture (``make_train_step``'s) stays in
+    # that one
+    if (not graphs.graph_route(dev, eager)
+            or torch.cuda.is_current_stream_capturing()):
         data, qf, cam, basis, prepacked = ops
         return torch.cat([_radiance(data, meta, qf, cam, basis, prepacked,
                                     seed, pix, chunk, differentiable, samples)
                           for pix in batches])[:P]
-    key = (dev, meta, batch, chunk, off_axis, layout(ops))
-    with torch.no_grad():
-        if _graphs.get("key") != key:
-            if _graphs:
-                for graph, _ in _graphs["captured"].values():
-                    graph.reset()
-                lockstep_graph_count["recaptures"] += 1
-            _graphs.clear()
-            st = make_lanes(*cloned(ops), batch)
-            _graphs.update(key=key, lanes=st, captured={}, bodies={
-                "start": functools.partial(start_sample, st),
-                "bounce": functools.partial(bounce_once, st, meta, chunk)})
-        else:
-            st = _graphs["lanes"]
-            for dst, src in zip(tensors(
-                    (st.data, st.qf, st.cam, st.basis, st.prepacked)),
-                    tensors(ops)):
-                dst.copy_(src)
+    key = (dev, meta, batch, chunk, off_axis, graphs.layout(ops))
+
+    def build(statics):
+        st = make_lanes(*statics, batch)
+        return st, {"start": functools.partial(start_sample, st),
+                    "bounce": functools.partial(bounce_once, st, meta, chunk)}
+    with torch.no_grad(), _program.entered(key, ops, build, dev) as st:
         st.seed.fill_(int(seed) & 0xFFFFFFFF)
         out = []
         for pix in batches:
@@ -222,14 +184,14 @@ def radiance_batches(data: SceneData, meta: SceneMeta, cam: Camera,
             acc = torch.zeros((batch, 3), dtype=torch.float32, device=dev)
             for s in samples:
                 st.sample.fill_(s)
-                _run("start", dev)
+                _program.run("start")
                 for _ in range(cam.bounce_limit):
                     if not differentiable:
                         lockstep_graph_count["syncs"] += 1
                         if not bool(st.alive.any()):
                             break
                         lockstep_graph_count["bounces"] += 1
-                    _run("bounce", dev)
+                    _program.run("bounce")
                 acc = acc + st.L.to_rows()
             out.append(acc * (1.0 / (cam.sqrt_spp * cam.sqrt_spp)))
     return torch.cat(out)[:P]

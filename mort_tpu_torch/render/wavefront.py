@@ -18,13 +18,13 @@ per-sample radiance is the JAX package's; only the accumulation order
 differs.  ``jax.lax.while_loop``/``fori_loop`` become Python loops whose
 condition is read on the host once a round (one device sync).  On a card
 the span's round is one captured device program kept by graph key across
-spans and calls, the counterpart of ``jax.jit(_wavefront_span)`` and its
-cache: the key's first round runs eagerly, the next is captured into a
-CUDA graph, and every later round of every span of the key is one replay
-over static tensors that each span and call fills (``_span_core``).  The
-deposit has a fixed shape, as JAX's drop-mode scatter: a lane that does
-not deposit adds into a drop row of its own past the image
-(``_deposit``).
+spans and calls (``graphs.KeptProgram``), the counterpart of
+``jax.jit(_wavefront_span)`` and its cache: the key's first round runs
+eagerly and is captured into a CUDA graph, and every later round of every
+span of the key is one replay over static tensors that each span fills
+(``_span_core``).  The deposit has a fixed shape, as JAX's drop-mode
+scatter: a lane that does not deposit adds into a drop row of its own
+past the image (``_deposit``).
 
 Every reference scene renders: constant media are sampled after the closest
 hit (``media_pass``), lights through the mixture pdf and fallback
@@ -35,7 +35,7 @@ is serialised, and changes only the float32 association of the image.
 Several devices
 ---------------
 ``render_wavefront(..., mesh=...)`` shards the task space over the ranks of
-a ``parallel.sharding.Mesh`` (one process a device): pixels are dealt
+a ``parallel.mesh.Mesh`` (one process a device): pixels are dealt
 round-robin (global pixel = local * n_shards + shard id), so every rank's
 pool sees the whole image and the ranks' loads balance.  Rays and Philox
 draws are keyed by the global pixel id, spans are layer-aligned, so each
@@ -47,8 +47,7 @@ pixel from one rank) gathers the image on every rank.
 
 from __future__ import annotations
 
-import functools
-import weakref
+import contextlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -57,14 +56,12 @@ import torch
 from .. import metrics
 from ..camera import Camera, CameraBasis, derive_basis, get_rays_soa
 from ..rng import DEFAULT_SEED
-from ..parallel.sharding import _all_reduce, check_mesh
+from ..parallel.mesh import _all_reduce, check_mesh
 from ..scene.build import SceneData, SceneMeta
 from ..device import require_cuda
 from . import closest_hit as ch
+from . import graphs
 from . import vec as v3
-from .graphs import (
-    capture, cloned, graph_route as _graph_route, layout, tensors,
-)
 from .hitshade import finalize_and_shade
 from .intersect import T_MIN, QuadFrames, media_pass, quad_frames
 from .primtable import build_prim_table
@@ -74,8 +71,8 @@ from .vec import V3
 # What the spans did since import (or since a caller reset them): spans
 # run, rounds run, CUDA graphs captured, captures that replaced another
 # key's program, rounds replayed from a graph, host reads (the loop
-# condition once a round, the useful count once a span, the device sync
-# before a capture) and seconds spent capturing.
+# condition once a round, the useful count once a span) and seconds spent
+# capturing.
 graph_count = {"spans": 0, "rounds": 0, "captures": 0, "recaptures": 0,
                "replays": 0, "syncs": 0, "capture_s": 0.0}
 
@@ -305,66 +302,10 @@ def _start_span(state: dict, fb: torch.Tensor, seed: int, task_start: int,
     state["go"].fill_(task_start < task_end)
 
 
-# the span's capture, counted in ``graph_count`` (a test puts a stand-in
-# here)
-_capture = functools.partial(capture, counts=graph_count)
-# the kept span program of the current graph key: "key", "ops" (static
-# clones of a call's SpanOperands), "round" and "state" (``_make_round``'s
-# over them), "warm" (its eager round has run), "captured" ((graph, replay)
-# once captured) and "src" (a weak reference to the SpanOperands last
-# copied into "ops")
-_graphs = {}
-
-
-def drop_graph() -> None:
-    """Drop the kept span program (its CUDA graph, its memory pool's hold
-    and its static tensors); the next span on a card captures anew."""
-    captured = _graphs.get("captured")
-    if captured is not None:
-        captured[0].reset()
-    _graphs.clear()
-
-
-def _kept_program(ops: SpanOperands, meta: SceneMeta, key, round_kw: dict):
-    """The kept program's state for ``key``, ``ops`` copied into its static
-    operands once a call: a new key drops the old program and makes a new
-    one over clones of ``ops``."""
-    if _graphs.get("key") != key:
-        if _graphs:
-            graph_count["recaptures"] += 1
-        drop_graph()
-        statics = cloned(ops)
-        round_, state = _make_round(statics, meta, **round_kw)
-        _graphs.update(key=key, ops=statics, round=round_, state=state,
-                       warm=False, captured=None)
-    elif _graphs["src"]() is not ops:
-        for dst, src in zip(tensors(_graphs["ops"]), tensors(ops)):
-            dst.copy_(src)
-    _graphs["src"] = weakref.ref(ops)
-    return _graphs["state"]
-
-
-def _run_kept(dev: torch.device):
-    """One round of the kept program: its key's first round eagerly (it
-    builds or loads the kernel library and does torch's lazy
-    initialisation), then the capture, then replays.  The key's first two
-    rounds, the eager one and the replay right after the capture (whose
-    launch also uploads the graph), are the span "wavefront.warm", every
-    later replay "wavefront.launch"; such a replay's timing events are
-    returned, else None."""
-    captured = _graphs["captured"]
-    if captured is None:
-        with metrics.span("wavefront.warm"):
-            if not _graphs["warm"]:
-                _graphs["round"]()
-                _graphs["warm"] = True
-                return None
-            captured = _graphs["captured"] = _capture(_graphs["round"], dev)
-            graph_count["syncs"] += 1
-            captured[1]()
-            return None
-    with metrics.span("wavefront.launch"):
-        return captured[1]()
+# the kept span program; its drop is ``drop_graph``
+_program = graphs.KeptProgram(graph_count, copy_in="wavefront.copy_in",
+                              warm="wavefront.warm", launch="wavefront.launch")
+drop_graph = _program.drop
 
 
 @metrics.spanned("wavefront.span")
@@ -382,23 +323,18 @@ def _span_core(ops: SpanOperands, meta: SceneMeta, seed: int,
     (identity when n_shards == 1).  Rays and RNG use the global id; padding
     pixels (global id >= W*H) are consumed but never activated.
 
-    On a CUDA device the span is the counterpart of the JAX package's
-    ``jax.jit(_wavefront_span)`` and its cache: one program kept by graph
-    key across spans and calls.  The key: the device, ``meta``, ``pool``,
-    ``window``, ``spt``, ``per``, ``n_shards``, ``shard_id``,
+    On a CUDA device the round is the unit "round" of the module's
+    ``graphs.KeptProgram`` (the counterpart of ``jax.jit(_wavefront_span)``
+    and its cache), entered once a span.  Its key: the device, ``meta``,
+    ``pool``, ``window``, ``spt``, ``per``, ``n_shards``, ``shard_id``,
     ``use_kernel``, ``no_defocus`` and the layout of ``ops`` (shapes, the
     camera's static fields, the pack's sizes and accel mode: "cull"'s and
-    "bvh"'s tables depend on the data; "none"'s quad rows off their
-    axes).  The key's first round runs eagerly, the next is captured
-    into a CUDA graph and every later round, of this span and of every
-    later span of the key, is one replay.  Before a span its static
-    tensors are filled (``_start_span``) and, once a call, ``ops`` is
-    copied into the key's clones.  The loop condition is read on the host
-    once a round.  A new key drops the old program; a failed capture or
-    replay raises and drops the key.  Spans: "wavefront.copy_in" (the
-    copy into the key's clones), "wavefront.start", the loop's (``_loop``)
-    and "wavefront.drain" (the image's copy out and the useful count's
-    host read).
+    "bvh"'s tables depend on the data; "none"'s quad rows off their axes).
+    The loop condition is read on the host once a round.  A failure
+    anywhere in the span drops the key.  Spans: the program's "wavefront.copy_in", "wavefront.warm" and "wavefront.launch",
+    "wavefront.start" (``_start_span``), the loop's (``_loop``) and
+    "wavefront.drain" (the image's copy out and the useful count's host
+    read).
     ``eager`` (private: the card tests and chip_smoke.py compare the two
     routes with it) runs every round eagerly over ``ops``, as the CPU
     always does; both routes run the same ops on the same values."""
@@ -407,27 +343,28 @@ def _span_core(ops: SpanOperands, meta: SceneMeta, seed: int,
                     shard_id=shard_id)
     dev = fb.device
     graph_count["spans"] += 1
-    if _graph_route(dev, eager):
+    if graphs.graph_route(dev, eager):
         key = (dev, meta, pool, window, spt, per, n_shards, shard_id,
-               use_kernel, no_defocus, layout(ops))
-        try:
-            with torch.no_grad(), metrics.span("wavefront.copy_in"):
-                state = _kept_program(ops, meta, key, round_kw)
-            with metrics.span("wavefront.start"):
-                _start_span(state, fb, seed, task_start, task_end)
-            iters = _loop(state, functools.partial(_run_kept, dev))
-        except Exception:
-            drop_graph()
-            raise
+               use_kernel, no_defocus, graphs.layout(ops))
+
+        def build(statics):
+            round_, state = _make_round(statics, meta, **round_kw)
+            return state, {"round": round_}
+        kept = _program.entered(key, ops, build, dev)
+
+        def run():
+            return _program.run("round")[1]
     else:
-        round_, state = _make_round(ops, meta, **round_kw)
+        run, state = _make_round(ops, meta, **round_kw)
+        kept = contextlib.nullcontext(state)
+    with kept as state:
         with metrics.span("wavefront.start"):
             _start_span(state, fb, seed, task_start, task_end)
-        iters = _loop(state, round_)
-    with metrics.span("wavefront.drain"):
-        fb.copy_(state["fb"][:per])
-        graph_count["syncs"] += 1
-        useful = int(state["useful"])
+        iters = _loop(state, run)
+        with metrics.span("wavefront.drain"):
+            fb.copy_(state["fb"][:per])
+            graph_count["syncs"] += 1
+            useful = int(state["useful"])
     return iters, useful
 
 
@@ -487,7 +424,7 @@ def render_wavefront(data: SceneData, meta: SceneMeta, cam: Camera,
     exactly once per layer and a resumed render is bit-identical to an
     uninterrupted one.
 
-    ``mesh`` (``parallel.sharding.make_mesh``): pixels are dealt
+    ``mesh`` (``parallel.mesh.make_mesh``): pixels are dealt
     round-robin over its ranks (module docstring) and every rank gets the
     whole image; spans are always layer-aligned (``layer_range``, default
     every layer; ``task_range`` raises), ``fb`` and the result are in
@@ -598,9 +535,10 @@ def render_wavefront(data: SceneData, meta: SceneMeta, cam: Camera,
             no_defocus=no_defocus, per=per, n_shards=n, shard_id=sid)
         rounds.append(it)
         useful += us
-    iters = sum(rounds)
-    stats = {"iterations": iters, "useful_segments": useful,
-             "slots_executed": iters * int(window) * int(pool)}
+    # each span's rounds and the useful segments, one column a rank (with
+    # a mesh summed into place; every rank has the same spans)
+    per_rank = torch.zeros((len(spans) + 1, n), dtype=torch.int64)
+    per_rank[:, sid] = torch.tensor(rounds + [useful])
     if mesh is not None:
         out = torch.zeros((WH, 3), dtype=torch.float32, device=device)
         out[gpix] = fb[:len(gpix)]
@@ -608,18 +546,14 @@ def render_wavefront(data: SceneData, meta: SceneMeta, cam: Camera,
         sent = {"spans": sum(mesh.collectives.values()) - before,
                 "gather": _all_reduce(mesh, fb, "gather")}
         if return_stats:
-            # each span's rounds and the useful segments, one column a
-            # rank, summed into place; every rank has the same spans
-            per_rank = torch.zeros((len(spans) + 1, n), dtype=torch.int64,
-                                   device=device)
-            per_rank[:, sid] = torch.tensor(rounds + [useful])
+            per_rank = per_rank.to(device)
             sent["stats"] = _all_reduce(mesh, per_rank, "stats")
-            *it_r, us_r = per_rank.tolist()
-            stats = {"iterations": sum(max(r) for r in it_r),
-                     "useful_segments": sum(us_r),
-                     "slots_executed": (sum(map(sum, it_r)) * int(window)
-                                        * int(pool)),
-                     "per_shard_useful": us_r, "collectives": sent}
+    *it_r, us_r = per_rank.tolist()
+    stats = {"iterations": sum(max(r) for r in it_r),
+             "useful_segments": sum(us_r),
+             "slots_executed": sum(map(sum, it_r)) * int(window) * int(pool)}
+    if mesh is not None:
+        stats.update(per_shard_useful=us_r, collectives=sent)
     if scrub_nan:
         fb = torch.where(torch.isnan(fb), 0.0, fb)
     img = fb.reshape(H, W, 3)

@@ -30,6 +30,7 @@ import torch.distributed as dist
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+from stand_in_capture import stand_in  # noqa: E402,F401
 from benchmark.harness import cells, check  # noqa: E402
 from benchmark.harness import window as win  # noqa: E402
 from benchmark.harness.window import Context  # noqa: E402
@@ -221,22 +222,9 @@ class _Event:
         return end.ms - self.ms
 
 
-class _Graph:
-    def reset(self):
-        pass
-
-
-def _stand_in_capture(fn, dev):
-    sharding.step_graph_count["captures"] += 1
-
-    def replay():
-        fn()
-        return _Event(0.0, True), _Event(4.0, True)
-    return _Graph(), replay
-
-
 @pytest.mark.parametrize("done", [True, False])
-def test_all_reduce_events_read_with_the_replay(monkeypatch, tmp_path, done):
+def test_all_reduce_events_read_with_the_replay(monkeypatch, tmp_path, done,
+                                                stand_in):
     """On the graph route of a grouped mesh (a one-rank gloo group, a
     stand-in capture and stand-in events) each replayed step's all-reduce
     is bracketed by two events, read at the next call's entry with the
@@ -244,9 +232,7 @@ def test_all_reduce_events_read_with_the_replay(monkeypatch, tmp_path, done):
     each; the eager first step's all-reduce is not timed.  Every step adds
     its bucket's bytes."""
     events = (_Event(1.0, done), _Event(1.5, done))
-    monkeypatch.setattr(sharding, "_graph_route",
-                        lambda dev, eager: not eager)
-    monkeypatch.setattr(sharding, "_capture", _stand_in_capture)
+    stand_in.stamps = lambda: (_Event(0.0, True), _Event(4.0, True))
     monkeypatch.setattr(sharding, "_all_reduce_events",
                         lambda mesh, device: events if mesh.groups else None)
     metrics.reset_spans()

@@ -14,54 +14,42 @@ there); on the CPU these tests hold what it rests on:
   ``intersect_best`` route;
 - a tensor bounce index gives the int's bits in ``finalize_and_shade``,
   ``media_pass`` and ``intersect_best``;
-- the graph route's loop with a stand-in capture whose replay runs the
-  unit: the eager route's images, bounces, host reads and closest-hit
-  calls; one capture a key and a recapture for a new key only; a new scene
-  of the same shapes, or the same tensors changed in place, rendered from
-  fresh tables; fresh results; no capture on the CPU or inside a capture;
-- the stand-in graph route against the JAX package.
-"""
+- the graph route's loop with the stand-in capture
+  (``stand_in_capture``) whose replay runs the unit: the eager route's
+  images, bounces, host reads and closest-hit calls; no capture inside a
+  capture.
 
-import dataclasses
+``test_torch_kept_programs.py`` holds what the three captured programs
+share: the CPU never captures, a new key recaptures (and a new scene of
+the same shapes, or the same tensors changed in place, renders from fresh
+tables), results stay fresh, a failure drops the key, and the stand-in
+route against the JAX package.
+"""
 
 import numpy as np
 import pytest
 import torch
 
-from conftest import assert_images_close
+from stand_in_capture import stand_in  # noqa: F401
 from test_torch_span_graph import _no_host_reads
 from test_torch_step_graph import _kernel_exempt
 
-from mort_tpu.parallel.sharding import (
-    make_mesh as j_make_mesh, render_sharded as j_render_sharded,
-)
-from mort_tpu.render.progressive import (
-    render_progressive as j_render_progressive,
-)
-from mort_tpu.render.renderer import render as j_render
-from mort_tpu_torch.camera import (
-    camera_from_numpy, derive_basis, get_rays_soa,
-)
+from mort_tpu_torch.camera import derive_basis, get_rays_soa
 from mort_tpu_torch.parallel import sharding
 from mort_tpu_torch.parallel.sharding import make_mesh, render_sharded
 from mort_tpu_torch.render import closest_hit as ch
-from mort_tpu_torch.render import integrator, progressive, renderer
+from mort_tpu_torch.render import integrator, progressive
 from mort_tpu_torch.render.graphs import tensors
 from mort_tpu_torch.render.hitshade import finalize_and_shade
 from mort_tpu_torch.render.intersect import (
     T_MIN, intersect_best, media_pass, quad_frames,
 )
 from mort_tpu_torch.render.progressive import render_progressive
-from mort_tpu_torch.render.renderer import radiance_batches, render
+from mort_tpu_torch.render.renderer import render
 from mort_tpu_torch.scene import scenes as tsc
-from mort_tpu_torch.scene.build import scene_from_numpy
 
 SEED = 11
 COUNTS = integrator.lockstep_graph_count
-
-
-def _fields(obj):
-    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
 
 
 def _scene(case, width=16):
@@ -80,43 +68,6 @@ def _scene(case, width=16):
     if case == "scene1":
         cam = cam.replace(defocus_angle=torch.tensor(0.6))
     return (*world.compile(), cam)
-
-
-class _Graph:
-    def reset(self):
-        pass
-
-
-class _StandIn:
-    """What ``render.graphs.capture`` returns, without a card: the capture
-    records nothing and keeps the unit (``bodies``, in capture order), and
-    each replay runs it."""
-
-    def __init__(self):
-        self.bodies = []
-
-    def __call__(self, fn, dev):
-        COUNTS["captures"] += 1
-        self.bodies.append(fn)
-
-        def replay():
-            fn()
-            COUNTS["replays"] += 1
-        return _Graph(), replay
-
-
-@pytest.fixture
-def stand_in(monkeypatch):
-    """The graph route on the CPU: ``_graph_route`` true unless eager, no
-    stream capturing, the capture the stand-in, no graphs kept from an
-    earlier test."""
-    capture = _StandIn()
-    monkeypatch.setattr(renderer, "_graph_route", lambda dev, eager: not eager)
-    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
-                        lambda: False)
-    monkeypatch.setattr(renderer, "_capture", capture)
-    monkeypatch.setattr(renderer, "_graphs", {})
-    return capture
 
 
 @pytest.fixture
@@ -277,91 +228,6 @@ def test_graph_route_equals_eager(entry, stand_in, hits, monkeypatch):
         assert g["syncs"] >= g["bounces"] == g["hits"] > starts
 
 
-def test_graph_keys_and_fresh_tables(stand_in):
-    """``render``'s calls on the stand-in graph route, each bit-equal to the
-    eager route on the same operands: the first call captures "start" and
-    "bounce"; a new seed, a new ``data`` object, new scene values of the
-    same shapes, the same tensors changed in place and new camera values
-    replay with no capture (each from the new values, not stale tables);
-    a new ``image_width``, ``ray_batch`` or route, or an axis-aligned quad
-    moved off its axes, captures both once more and drops the old key."""
-    data, meta, cam = _scene("cornell")
-    data = data.replace(quad_Q=data.quad_Q.clone())
-    images = []
-
-    def call(d, c, seed, captures, msg, ray_batch=50, use_kernel=True):
-        before = dict(COUNTS)
-        got = render(d, meta, c, seed, ray_batch=ray_batch, device="cpu",
-                     use_kernel=use_kernel)
-        moved = _moved(before)
-        assert moved["captures"] == 2 * captures, msg
-        assert moved["recaptures"] == (captures if images else 0), msg
-        assert moved["replays"] > 0, msg
-        want = render(d, meta, c, seed, ray_batch=ray_batch, device="cpu",
-                      use_kernel=use_kernel, _eager=True)
-        assert _same(got, want), msg
-        images.append(got)
-
-    call(data, cam, SEED, 1, "the first call")
-    call(data, cam, SEED + 1, 0, "a new seed")
-    call(data.replace(), cam, SEED, 0, "a new data object")
-    call(data.replace(tex_color=data.tex_color * 0.7), cam, SEED, 0,
-         "new scene values")
-    assert not _same(images[-1], images[0])
-    data.quad_Q.add_(0.05)
-    call(data, cam, SEED, 0, "the tensors changed in place")
-    assert not _same(images[-1], images[0])
-    call(data, cam.replace(lookfrom=cam.lookfrom + 0.5), SEED, 0,
-         "new camera values")
-    call(data, cam.replace(image_width=10), SEED, 1, "a new image_width")
-    call(data, cam, SEED, 1, "the image_width back")
-    call(data, cam, SEED, 1, "a new ray_batch", ray_batch=64)
-    groups = ch.aaq_groups_of(meta)
-    cls = sorted(groups)[0]
-    u = data.quad_u.clone()
-    u[groups[cls][0], 3 - cls // 3 - cls % 3] += 1e-3
-    off = data.replace(quad_u=u)
-    call(off, cam, SEED, 1, "a quad off its axes", ray_batch=64)
-    call(off, cam, SEED + 2, 0, "a quad off its axes, again", ray_batch=64)
-    call(off, cam, SEED, 1, "the intersect_best route", ray_batch=64,
-         use_kernel=False)
-    assert len(stand_in.bodies) == 2 * 6
-
-
-def test_results_are_fresh(stand_in):
-    """A replayed call's result is a new tensor: the last call's result
-    stays as it was after the next call."""
-    data, meta, cam = _scene("cornell")
-    pix = torch.arange(144, dtype=torch.int64)
-    radiance_batches(data, meta, cam, SEED, pix, 50)
-    first = radiance_batches(data, meta, cam, SEED + 1, pix, 50)
-    kept = first.clone()
-    before = dict(COUNTS)
-    second = radiance_batches(data, meta, cam, SEED + 2, pix, 50)
-    assert _moved(before)["replays"] > 0 and len(stand_in.bodies) == 2
-    assert first.shape == (144, 3)
-    assert _same(first, kept) and not _same(first, second)
-
-
-def test_cpu_route_never_captures(monkeypatch):
-    """The CPU runs eagerly: no capture and no replay, one host read of
-    ``alive.any()`` a bounce run and one more where a sample's lanes all
-    ended before the depth."""
-
-    def refuse(fn, dev):
-        raise AssertionError("the CPU captured")
-
-    monkeypatch.setattr(renderer, "_capture", refuse)
-    data, meta, cam = _scene("cornell")
-    before = dict(COUNTS)
-    render(data, meta, cam, SEED, device="cpu")
-    moved = _moved(before)
-    assert moved["captures"] == moved["replays"] == 0
-    assert moved["capture_s"] == 0.0
-    assert 0 < moved["bounces"] <= moved["syncs"]
-    assert moved["syncs"] <= moved["bounces"] + cam.sqrt_spp ** 2
-
-
 def test_call_inside_a_capture_stays_eager(stand_in, monkeypatch):
     """A call made while a stream is capturing (``make_train_step``'s
     capture reaches ``radiance_for_pixels``) starts no capture of its own
@@ -376,40 +242,3 @@ def test_call_inside_a_capture_stays_eager(stand_in, monkeypatch):
     assert not stand_in.bodies
     assert _same(got, render(data, meta, cam, SEED, device="cpu",
                              _eager=True))
-
-
-@pytest.fixture(scope="module")
-def three_spheres(three_sphere_scene):
-    """conftest's three-sphere scene (32x18, 4 spp, a defocus) at depth 6 in
-    both packages."""
-    jdata, jmeta, jcam = three_sphere_scene
-    jcam = jcam.replace(bounce_limit=6)
-    data, meta = scene_from_numpy(_fields(jdata), _fields(jmeta))
-    return (jdata, jmeta, jcam), (data, meta, camera_from_numpy(
-        _fields(jcam)))
-
-
-@pytest.mark.parametrize("entry", ["render", "render_progressive",
-                                   "render_sharded"])
-def test_stand_in_graph_route_matches_jax(entry, three_spheres, stand_in):
-    """Each caller on the stand-in graph route (replays after the first
-    call's start and bounce) against the JAX package's: ``render``,
-    ``render_progressive`` in steps of 3 and 1 samples, ``render_sharded``
-    over a one-CPU-device mesh; by the image rule."""
-    (jdata, jmeta, jcam), (data, meta, cam) = three_spheres
-    if entry == "render":
-        got = render(data, meta, cam, SEED, device="cpu").numpy()
-        want = j_render(jdata, jmeta, jcam, seed=SEED)
-    elif entry == "render_progressive":
-        got = render_progressive(data, meta, cam, SEED, samples_per_step=3,
-                                 device="cpu").fb
-        want = j_render_progressive(jdata, jmeta, jcam, seed=SEED,
-                                    samples_per_step=3).fb
-    else:
-        got = render_sharded(data, meta, cam, make_mesh(1, devices=["cpu"]),
-                             SEED)
-        want = j_render_sharded(jdata, jmeta, jcam, j_make_mesh(1),
-                                seed=SEED)
-    assert len(stand_in.bodies) == 2 and COUNTS["replays"] > 0
-    assert np.isfinite(got).all()
-    assert_images_close(got, np.asarray(want), msg=f"{entry} port vs jax")

@@ -2,12 +2,12 @@
 hold.
 
 On a card ``_span_core`` keeps one program a graph key across spans and
-calls: the key's first round runs eagerly, the next is captured into a
-CUDA graph and every later round of every span of the key replays it (the
-counterpart of the JAX package's ``jax.jit(_wavefront_span)`` and its
-cache).  The capture itself needs the card (``test_torch_cuda.py`` holds
-the graph route against the eager route there); on the CPU these tests
-hold what the capture rests on:
+calls (``graphs.KeptProgram``): the key's first round runs eagerly and is
+captured into a CUDA graph, and every later round of every span of the
+key replays it (the counterpart of the JAX package's
+``jax.jit(_wavefront_span)`` and its cache).  The capture itself needs the
+card (``test_torch_cuda.py`` holds the graph route against the eager route
+there); on the CPU these tests hold what the capture rests on:
 
 - the round schedule (rounds and useful segments) against the JAX
   package's at the same pool, window and spt;
@@ -18,12 +18,16 @@ hold what the capture rests on:
 - no host read and no tensor made from host data inside a round of a
   kept key (the seed and the span's end device scalars), which a capture
   would refuse, nor in the span's start;
-- with a stand-in for the capture whose replay runs the key's round: one
-  capture a key, a replay for every later round of every span and call;
-  a second call of the key with the seed, the task range, ``fb``, the
-  camera and the scene changed gives the eager route's bits; a new pool,
-  spt or accel captures anew; progressive resume bit-equal; the JAX
-  package's image.
+- with the stand-in capture (``stand_in_capture``) whose replay runs the
+  key's round: one capture a key, a replay for every later round of every
+  span and call; a second call of the key with the seed, the task range,
+  ``fb``, the camera and the scene changed gives the eager route's bits;
+  progressive resume bit-equal.
+
+``test_torch_kept_programs.py`` holds what the three captured programs
+share: the CPU never captures, a new key recaptures, results stay fresh,
+in-place updates are read, a failure drops the key, and the stand-in
+route against the JAX package.
 """
 
 import dataclasses
@@ -36,6 +40,7 @@ from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from conftest import assert_images_close
+from stand_in_capture import stand_in  # noqa: F401
 
 from mort_tpu.render import wavefront as jwf
 from mort_tpu.scene import scenes as jsc
@@ -242,62 +247,6 @@ def test_round_makes_no_host_read(idx):
     assert int(state["useful"]) > 0 and bool(state["go"])
 
 
-def test_cpu_route_never_captures():
-    """The CPU runs every round eagerly: no capture, no replay; one host
-    read of the loop condition a round (and the last one), and one of the
-    useful count a span."""
-    world, cam = tsc.build_scene(5)
-    data, meta = world.compile()
-    cam = cam.replace(image_width=16, image_height=16, sqrt_spp=2,
-                      bounce_limit=3)
-    before = dict(twf.graph_count)
-    _, stats = twf.render_wavefront(data, meta, cam, "cpu", seed=SEED,
-                                    pool=1024, spt=1, layer_range=(0, 4),
-                                    return_stats=True)
-    moved = {k: twf.graph_count[k] - before[k] for k in before}
-    assert moved["captures"] == moved["replays"] == 0
-    assert moved["capture_s"] == 0.0
-    assert moved["spans"] == 4
-    assert moved["rounds"] == stats["iterations"]
-    assert moved["syncs"] == stats["iterations"] + 2 * moved["spans"]
-
-
-class _Graph:
-    def reset(self):
-        pass
-
-
-class _StandIn:
-    """What ``render.graphs.capture`` returns, without a card: the capture
-    records nothing and keeps the key's round (``rounds``, in capture
-    order), and each replay runs it, so a value the round baked in at its
-    key's first span reaches every later span as a real graph carries
-    it."""
-
-    def __init__(self):
-        self.rounds = []
-
-    def __call__(self, round_, dev):
-        twf.graph_count["captures"] += 1
-        self.rounds.append(round_)
-
-        def replay():
-            round_()
-            twf.graph_count["replays"] += 1
-        return _Graph(), replay
-
-
-@pytest.fixture
-def stand_in(monkeypatch):
-    """The graph route on the CPU: ``_graph_route`` true unless eager, the
-    capture the stand-in, no program kept from an earlier test."""
-    capture = _StandIn()
-    monkeypatch.setattr(twf, "_graph_route", lambda dev, eager: not eager)
-    monkeypatch.setattr(twf, "_capture", capture)
-    monkeypatch.setattr(twf, "_graphs", {})
-    return capture
-
-
 def _counted(fn):
     """``fn()`` and the spans' graph counts it added."""
     before = dict(twf.graph_count)
@@ -339,7 +288,7 @@ def test_graph_route_loop_with_a_stand_in_capture(stand_in, monkeypatch):
     assert _same(got, want)
     assert stats == want_stats
     assert moved["spans"] > 1
-    assert moved["captures"] == len(stand_in.rounds) == 1
+    assert moved["captures"] == len(stand_in.bodies) == 1
     assert moved["replays"] == moved["rounds"] - 1 > 0
     assert moved["recaptures"] == 0
 
@@ -389,7 +338,7 @@ def test_kept_key_takes_each_calls_values(stand_in, monkeypatch):
         if k:
             assert moved["captures"] == 0
             assert moved["replays"] == moved["rounds"] > 0
-    assert captured == len(stand_in.rounds) == 1
+    assert captured == len(stand_in.bodies) == 1
 
 
 @pytest.mark.parametrize("sharded", [False, True])
@@ -414,28 +363,6 @@ def test_layer_aligned_call_captures_once(stand_in, monkeypatch, sharded):
         assert moved["spans"] == 4 and moved["recaptures"] == 0
         assert moved["captures"] == (1, 0)[k]
         assert moved["replays"] == moved["rounds"] - (1, 0)[k] > 0
-
-
-@pytest.mark.parametrize("field", ["pool", "spt", "accel"])
-def test_new_key_recaptures(stand_in, monkeypatch, field):
-    """A call that changes a field of the key (the pool, the chunk size,
-    the accel mode) drops the kept program, captures anew and counts a
-    recapture, with the eager route's bits; the same key again does
-    not."""
-    data, meta, cam = _scene1()
-    base = dict(pool=1024, spt=2, accel="none")
-    other = dict(base, **{field: {"pool": 2048, "spt": 4,
-                                  "accel": "bvh"}[field]})
-    for k, kw in enumerate((base, other, other)):
-        def render(kw=kw):
-            return twf.render_wavefront(data, meta, cam, "cpu", seed=SEED,
-                                        window=2, return_stats=True, **kw)
-        want, want_stats = _eager(monkeypatch, render)
-        (got, stats), moved = _counted(render)
-        assert _same(got, want) and stats == want_stats
-        assert moved["captures"] == (1, 1, 0)[k]
-        assert moved["recaptures"] == (0, 1, 0)[k]
-    assert len(stand_in.rounds) == 2
 
 
 def test_stand_in_progressive_resume_bit_equal(stand_in, monkeypatch,
@@ -475,25 +402,4 @@ def test_stand_in_progressive_resume_bit_equal(stand_in, monkeypatch,
         data, meta, cam, state=load_state(ckpt), **kw).fb)
     assert np.array_equal(resumed.view(np.int32), want.view(np.int32))
     assert moved["captures"] == 0 and moved["replays"] == moved["rounds"]
-    assert len(stand_in.rounds) == 1
-
-
-def test_stand_in_graph_route_matches_jax(stand_in):
-    """A render of several spans on the stand-in graph route (one capture,
-    replays for every later round) against the JAX package's
-    ``render_wavefront`` at the same pool, window and spt, by the image
-    rule."""
-    world, cam = tsc.build_scene(1)
-    data, meta = world.compile()
-    jworld, jcam = jsc.build_scene(1)
-    jdata, jmeta = jworld.compile()
-    kw = dict(seed=SEED, pool=POOL, window=WINDOW, spt=SPT)
-    want = jwf.render_wavefront(jdata, jmeta, _small(jcam), use_pallas=False,
-                                **kw)
-    (got, stats), moved = _counted(lambda: twf.render_wavefront(
-        data, meta, _small(cam), "cpu", max_paths_per_call=3000,
-        return_stats=True, **kw))
-    assert moved["spans"] > 1 and moved["captures"] == 1
-    assert moved["replays"] == moved["rounds"] - 1 > 0
-    assert_images_close(got.numpy(), np.asarray(want),
-                        msg="stand-in graph route vs jax")
+    assert len(stand_in.bodies) == 1

@@ -2,8 +2,9 @@
 
 On a card ``make_train_step`` runs the first step of a graph key eagerly,
 captures the step (forward, loss, ``torch.autograd.grad``) into a CUDA
-graph and replays it for every later step (the counterpart of the JAX
-package's ``jax.jit`` at mort_tpu/parallel/sharding.py:164).  The capture
+graph and replays it for every later step (``graphs.KeptProgram``, the
+counterpart of the JAX package's ``jax.jit`` at
+mort_tpu/parallel/sharding.py:164).  The capture
 itself needs the card (``test_torch_cuda.py`` holds the graph route against
 the eager route there); on the CPU these tests hold what the capture rests
 on:
@@ -12,11 +13,15 @@ on:
   static operands, which a capture would refuse, on the kernel route
   (the closest-hit Function; its plain versions, which are kernels on a
   card, exempt by name) and on the ``intersect_best`` route;
-- the graph route's call loop with a stand-in for the capture whose replay
-  runs the body: one capture a key, a replay for every later call, a
-  recapture for a new key only, the eager route's results bit for bit,
-  fresh results;
-- the stand-in graph route against the JAX package's step.
+- with the stand-in capture (``stand_in_capture``) whose replay runs the
+  body: an axis-aligned quad off its axes enters the key; the step
+  function frees its graph when dropped.
+
+``test_torch_kept_programs.py`` holds what the three captured programs
+share: the CPU never captures, a new key recaptures (a new seed, ``data``
+or ``cam`` object replays), results stay fresh, a leaf updated in place
+is read, a failure drops the key, and the stand-in route against the JAX
+package's step.
 """
 
 import contextlib
@@ -28,16 +33,13 @@ import pytest
 import torch
 from torch.utils._python_dispatch import _disable_current_modes
 
+from stand_in_capture import stand_in  # noqa: F401
 from test_torch_span_graph import HostRead, _no_host_reads
 
-from mort_tpu.parallel.sharding import (
-    make_mesh, make_train_step as j_make_train_step,
-)
 from mort_tpu.render.renderer import render as j_render
 from mort_tpu.scene import scenes as jsc
 from mort_tpu_torch.camera import camera_from_numpy
-from mort_tpu_torch.parallel import sharding
-from mort_tpu_torch.parallel.sharding import _DIFF_FIELDS, make_train_step
+from mort_tpu_torch.parallel.sharding import make_train_step
 from mort_tpu_torch.render import closest_hit as ch
 from mort_tpu_torch.scene import scenes as tsc
 from mort_tpu_torch.scene.build import scene_from_numpy
@@ -76,43 +78,6 @@ def _scene(idx):
     return data, meta, cam, np.full((h, 48, 3), 0.5, np.float32)
 
 
-class _Graph:
-    def reset(self):
-        pass
-
-
-class _StandIn:
-    """What ``render.graphs.capture`` returns, without a card: the capture
-    records nothing and keeps the body (``bodies``) and a weak reference to
-    the graph (``graphs``), and each replay runs the body."""
-
-    def __init__(self):
-        self.bodies = []
-        self.graphs = []
-
-    def __call__(self, fn, dev):
-        counts = sharding.step_graph_count
-        counts["captures"] += 1
-        self.bodies.append(fn)
-        graph = _Graph()
-        self.graphs.append(weakref.ref(graph))
-
-        def replay():
-            fn()
-            counts["replays"] += 1
-        return graph, replay
-
-
-@pytest.fixture
-def stand_in(monkeypatch):
-    """The graph route on the CPU: ``_graph_route`` true unless eager, the
-    capture the stand-in."""
-    capture = _StandIn()
-    monkeypatch.setattr(sharding, "_graph_route", lambda dev, eager: not eager)
-    monkeypatch.setattr(sharding, "_capture", capture)
-    return capture
-
-
 @contextlib.contextmanager
 def _host_reads_allowed():
     with _disable_current_modes(), torch._C.DisableTorchFunction():
@@ -130,20 +95,6 @@ def _kernel_exempt(monkeypatch):
             with _host_reads_allowed():
                 return _plain(*args, **kw)
         monkeypatch.setattr(ch, name, exempt)
-
-
-def _delta(before):
-    return {k: sharding.step_graph_count[k] - before[k] for k in before}
-
-
-def _assert_same(got, want, msg=""):
-    (g_loss, g_grads), (w_loss, w_grads) = got, want
-    assert torch.equal(g_loss.view(torch.int32), w_loss.view(torch.int32)), \
-        msg
-    assert set(g_grads) == set(w_grads) == set(_DIFF_FIELDS)
-    for k in _DIFF_FIELDS:
-        assert torch.equal(g_grads[k].view(torch.int32),
-                           w_grads[k].view(torch.int32)), f"{msg} {k}"
 
 
 @pytest.mark.parametrize("case,use_kernel", [
@@ -196,81 +147,25 @@ def test_exemption_is_not_vacuous(name, cornell, stand_in, monkeypatch):
         _no_host_reads(stand_in.bodies[0])
 
 
-def test_graph_route_call_loop(cornell, stand_in):
-    """The graph route's calls with the stand-in capture, each against the
-    eager route (``_eager=True``) on the same operands, bit for bit: the
-    first call runs eagerly and captures; a new seed, or a new ``data`` or
-    ``cam`` object of the same key, replays with no recapture; a new
-    ``image_width``, ``sqrt_spp`` or ``bounce_limit``, or an axis-aligned
-    quad moved off its axes, captures once more; a step's results stay as
-    they were after the next step (they are not the graph's outputs)."""
+def test_quad_off_its_axes_enters_the_key(cornell, stand_in):
+    """An axis-aligned quad moved off its axes is found by ``_prep`` (the
+    step's operands carry its row) and captures the step once more; the
+    same scene again replays."""
     _j, (data, meta, cam), target = cornell
     step = make_train_step(meta, device="cpu", use_kernel=True)
-    eager = make_train_step(meta, device="cpu", use_kernel=True,
-                            _eager=True)
-    kept = []
-
-    def call(d, c, t, seed, captures, replays, msg):
-        before = dict(sharding.step_graph_count)
-        got = step(d, c, t, seed)
-        moved = _delta(before)
-        assert moved["steps"] == 1, msg
-        assert (moved["captures"], moved["replays"]) == (captures,
-                                                         replays), msg
-        assert moved["recaptures"] == (captures if kept else 0), msg
-        _assert_same(got, eager(d, c, t, seed), msg)
-        for k, (res, copy) in enumerate(kept):
-            _assert_same(res, copy, f"step {k} after {msg}")
-        kept.append((got, (got[0].clone(), {k: g.clone()
-                                            for k, g in got[1].items()})))
-
-    call(data, cam, target, SEED, 1, 0, "the first call")
-    call(data, cam, target, SEED + 1, 0, 1, "a new seed")
-    call(data.replace(), cam, target, SEED + 1, 0, 1, "a new data object")
-    call(data.replace(tex_color=data.tex_color * 0.9), cam, target, SEED,
-         0, 1, "new scene values")
-    call(data, cam.replace(lookfrom=cam.lookfrom + 0.05), target, SEED, 0, 1,
-         "new camera values")
-    call(data, cam, target * 0.5, SEED, 0, 1, "a new target")
-    for name, c, t in (
-            ("image_width", cam.replace(image_width=10), target[:, :10]),
-            ("sqrt_spp", cam.replace(sqrt_spp=1), target),
-            ("bounce_limit", cam.replace(bounce_limit=4), target)):
-        call(data, c, t, SEED, 1, 0, f"a new {name}")
-        call(data, c, t, SEED + 2, 0, 1, f"a new {name}, again")
-    # the normal's axis of the first axis-aligned quad: u tilts off its axis
+    step(data, cam, target, SEED)
+    assert step.prep_cache["val"][4] == ()
     groups = ch.aaq_groups_of(meta)
     cls = sorted(groups)[0]
     row = groups[cls][0]
     u = data.quad_u.clone()
     u[row, 3 - cls // 3 - cls % 3] += 1e-3
     off = data.replace(quad_u=u)
-    call(off, cam, target, SEED, 1, 0, "a quad off its axes")
+    step(off, cam, target, SEED)
     assert step.prep_cache["val"][4] == (row,)
-    call(off, cam, target, SEED + 3, 0, 1, "a quad off its axes, again")
-    assert len(stand_in.bodies) == 5
-
-
-def test_stand_in_graph_route_matches_jax(cornell, stand_in):
-    """The stand-in graph route's step (a replay) against the JAX package's
-    ``make_train_step(meta, make_mesh(1))``, by test_torch_train_step.py's
-    tolerances; both on their default CPU route (the XLA intersector in
-    JAX, ``intersect_best`` in the port)."""
-    (jdata, jmeta, jcam), (data, meta, cam), target = cornell
-    step = make_train_step(meta, device="cpu")
-    step(data, cam, target, SEED + 5)
-    before = dict(sharding.step_graph_count)
-    loss, grads = step(data, cam, target, SEED)
-    assert _delta(before)["replays"] == 1
-    j_loss, j_grads = j_make_train_step(jmeta, make_mesh(1))(
-        jdata, jcam, target, SEED)
-    j_grads = {k: np.asarray(v) for k, v in j_grads.items()}
-    np.testing.assert_allclose(float(loss), float(j_loss), rtol=1e-4)
-    scale = max(np.abs(g).max() for g in j_grads.values())
-    assert scale > 0
-    for k in _DIFF_FIELDS:
-        np.testing.assert_allclose(grads[k].numpy(), j_grads[k], rtol=1e-3,
-                                   atol=1e-5 * scale, err_msg=k)
+    assert len(stand_in.bodies) == 2
+    step(off, cam, target, SEED + 1)
+    assert len(stand_in.bodies) == 2
 
 
 def test_step_is_freed_when_dropped(cornell, stand_in):

@@ -7,8 +7,9 @@
   counters stay as they were;
 - a CPU ``render_wavefront``, ``view`` and train step: span counts against
   ``graph_count`` and ``step_graph_count``, and on the graph route with
-  stand-ins for the capture whose replays return stand-in timing events,
-  the device-time and period counters of the rounds and the steps;
+  the stand-in capture (``stand_in_capture``) whose replays return
+  stand-in timing events, the device-time and period counters of the
+  rounds and the steps;
 - the six per-layer readers of ``benchmark/metrics`` that read the spans:
   None on empty totals, the expected value on planted ones.
 """
@@ -22,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
+
+from stand_in_capture import stand_in  # noqa: F401
 
 from benchmark.harness import cells
 from mort_tpu_torch import metrics
@@ -244,36 +247,21 @@ class _Stamp:
         return self.done
 
 
-class _Graph:
-    def reset(self):
-        pass
+def _stamps(clock, device_ms, done=True):
+    """A replay's stand-in timing events: they move the clock on by 1 ms
+    and are ``device_ms`` apart."""
+    def stamps():
+        clock.now += 1_000_000
+        return _Stamp(0.0, done), _Stamp(device_ms, done)
+    return stamps
 
 
-def _stand_in_capture(counts, clock, device_ms, done=True):
-    """A stand-in for ``graphs.capture``: no capture, each replay runs the
-    body, moves the clock on by 1 ms and returns stand-in timing events
-    ``device_ms`` apart."""
-    def capture(fn, dev):
-        counts["captures"] += 1
-
-        def replay():
-            fn()
-            clock.now += 1_000_000
-            counts["replays"] += 1
-            return _Stamp(0.0, done), _Stamp(device_ms, done)
-        return _Graph(), replay
-    return capture
-
-
-def test_replayed_rounds_count_device_time_and_period(clock, monkeypatch):
+def test_replayed_rounds_count_device_time_and_period(clock, stand_in):
     """On the graph route (a stand-in capture) each replay is one
     "wavefront.launch" and, after the read that follows it, adds its
     device time and its period (read end to read end) to the counters;
-    the key's eager round and its capture are spans of their own."""
-    monkeypatch.setattr(twf, "_graph_route", lambda dev, eager: not eager)
-    monkeypatch.setattr(twf, "_graphs", {})
-    monkeypatch.setattr(twf, "_capture", _stand_in_capture(
-        twf.graph_count, clock, 0.25))
+    the key's eager round with its capture is a span of its own."""
+    stand_in.stamps = _stamps(clock, 0.25)
     data, meta, cam = _scene7()
     for k in range(2):
         metrics.reset_spans()
@@ -281,12 +269,12 @@ def test_replayed_rounds_count_device_time_and_period(clock, monkeypatch):
             data, meta, cam, "cpu", seed=SEED + k, pool=256, window=2, spt=1,
             max_paths_per_call=300))
         t = metrics.span_totals()
-        # the first call: the eager round, then the capture and its
-        # replay, both "wavefront.warm" and not timed
+        # the first call: the eager round and its capture,
+        # "wavefront.warm" and not timed; every later round a replay
         warm = metrics.total_of(t, "wavefront.warm").count
         timed = metrics.total_of(t, "wavefront.launch").count
-        assert warm == (2, 0)[k]
-        assert timed == moved["replays"] - warm // 2 > 0
+        assert warm == (1, 0)[k]
+        assert timed == moved["replays"] > 0
         assert moved["rounds"] == timed + warm
         c = metrics.counters()
         assert c["wavefront.round_device_ns"] == timed * 250_000
@@ -343,15 +331,12 @@ def test_train_steps_span_a_step_each(fresh):
 
 
 @pytest.mark.parametrize("done", [True, False])
-def test_replayed_steps_count_device_time_and_period(clock, monkeypatch,
+def test_replayed_steps_count_device_time_and_period(clock, stand_in,
                                                      done):
     """On the graph route (a stand-in capture) each call reads the last
     replay's timing events on entry: its device time and the period from
     that call's start to its own, or, not yet done, one unread."""
-    monkeypatch.setattr(sharding, "_graph_route",
-                        lambda dev, eager: not eager)
-    monkeypatch.setattr(sharding, "_capture", _stand_in_capture(
-        sharding.step_graph_count, clock, 2.5, done))
+    stand_in.stamps = _stamps(clock, 2.5, done)
     data, meta, cam, target = _step_scene()
     step = make_train_step(meta, device="cpu")
     for k in range(4):
